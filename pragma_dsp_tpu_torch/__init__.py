@@ -1,0 +1,19 @@
+"""pragma_dsp_tpu_torch — the PyTorch + CUDA port of pragma_dsp_tpu.
+
+The JAX package ``pragma_dsp_tpu`` stays the reference; this package
+mirrors its subpackages (``core``, ``xform``, ``ops``, ``public``,
+``stream``) on PyTorch tensors, with the TPU kernels of the spectrum path
+rewritten by hand in CUDA for the H100 (``csrc/``). It exports only what
+is ported (see PORT.md).
+
+* beginner  — ``pragma_dsp_tpu_torch.spectrum`` (root export)
+* power     — ``pragma_dsp_tpu_torch.xform``
+* expert    — ``pragma_dsp_tpu_torch.core``
+* streaming — ``pragma_dsp_tpu_torch.stream``
+"""
+
+from .public import SpectrumPeak, SpectrumResult, spectrum
+
+__version__ = "0.1.0"
+
+__all__ = ["spectrum", "SpectrumPeak", "SpectrumResult", "__version__"]

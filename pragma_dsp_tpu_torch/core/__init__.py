@@ -1,0 +1,24 @@
+"""Core layer — split-complex tensors + batched radix-2 FFT (expert rung)."""
+
+from .complex import (
+    ComplexArray,
+    as_complex_array,
+    create_complex_array,
+    ensure_float,
+    is_power_of_two,
+    next_power_of_two,
+)
+from .fft import Radix2Fft, fft, fft_axis0, ifft
+
+__all__ = [
+    "ComplexArray",
+    "as_complex_array",
+    "create_complex_array",
+    "ensure_float",
+    "is_power_of_two",
+    "next_power_of_two",
+    "Radix2Fft",
+    "fft",
+    "fft_axis0",
+    "ifft",
+]

@@ -1,0 +1,5 @@
+"""Utilities: numpy interop with the JAX package."""
+
+from .interop import complex_from_numpy, result_to_numpy, to_numpy
+
+__all__ = ["complex_from_numpy", "result_to_numpy", "to_numpy"]

@@ -1,0 +1,191 @@
+"""K1 (one-sided spectrum) and K2 (row FFT): their plain versions against
+the JAX Pallas kernels run in interpret mode, their constant tables
+bit-equal to the JAX plans, the wrappers' input rules and launch counts,
+and the builder. The kernels themselves run only on a CUDA card:
+tests/test_torch_cuda.py checks them there, and chip_smoke.py is their
+evidence."""
+
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pragma_dsp_tpu.core import ComplexArray as JComplexArray
+from pragma_dsp_tpu.utils.fixtures import snr_db
+from pragma_dsp_tpu_torch.ops import _build, dispatch, fft_cuda
+
+# The packages export functions that shadow these submodule names.
+jfft = importlib.import_module("pragma_dsp_tpu.core.fft")
+jpallas = importlib.import_module("pragma_dsp_tpu.ops.fft_pallas")
+
+RNG = np.random.default_rng(5)
+
+
+def _frames(batch, n):
+    t = np.arange(n) / 48000.0
+    x = (0.8 * np.sin(2 * np.pi * 1500.0 * t + 0.7)
+         + 0.01 * RNG.standard_normal((batch, n)))
+    return x.astype(np.float32)
+
+
+def _wrapped(d):
+    return np.abs(np.angle(np.exp(1j * d)))
+
+
+# ── K1 ───────────────────────────────────────────────────────────────
+
+
+@pytest.mark.parametrize("n", [256, 1024])
+def test_k1_plain_matches_pallas_amp_phase(n):
+    x = _frames(4, n)
+    amp, ph = fft_cuda.spectrum_amp_phase_cuda(torch.from_numpy(x), n, "hann")
+    ref_amp, ref_ph = jpallas.spectrum_amp_phase_pallas(
+        jnp.asarray(x), n, "hann", interpret=True, precision="highest")
+    ref_amp, ref_ph = np.asarray(ref_amp), np.asarray(ref_ph)
+    assert amp.shape == (4, n // 2 + 1) and amp.dtype == torch.float32
+    np.testing.assert_allclose(amp.numpy(), ref_amp, rtol=0, atol=2e-6)
+    mask = ref_amp > 1e-3
+    assert mask.any()
+    assert _wrapped(ph.numpy()[mask] - ref_ph[mask]).max() <= 1e-4
+
+
+@pytest.mark.parametrize("n", [256, 1024])
+def test_k1_plain_matches_pallas_amplitude(n):
+    x = _frames(4, n).reshape(2, 2, n)
+    amp = fft_cuda.spectrum_amplitude_cuda(torch.from_numpy(x), n, "hann", "one")
+    ref = np.asarray(jpallas.spectrum_amplitude_pallas(
+        jnp.asarray(x), n, "hann", "one", interpret=True, precision="highest"))
+    assert amp.shape == (2, 2, n // 2 + 1)
+    np.testing.assert_allclose(amp.numpy(), ref, rtol=0, atol=2e-6)
+
+
+def test_k1_nyquist_and_dc_exactly_real():
+    """Copied from tests/test_pallas_fft.py::test_fused_amp_phase_nyquist_and_dc."""
+    n = 256
+    x = (0.5 + 0.25 * np.cos(np.pi * np.arange(n))).astype(np.float32)
+    amp, ph = fft_cuda.spectrum_amp_phase_cuda(torch.from_numpy(x[None]), n, "rect")
+    assert abs(float(amp[0, 0]) - 0.5) < 1e-5          # DC /N
+    assert abs(float(amp[0, -1]) - 0.25) < 1e-5        # Nyquist /N
+    assert abs(float(ph[0, 0])) < 1e-6                 # positive DC -> 0
+    assert abs(float(ph[0, -1])) < 1e-6                # positive Nyquist -> 0
+    x2 = (-0.5 - 0.25 * np.cos(np.pi * np.arange(n))).astype(np.float32)
+    _, ph2 = fft_cuda.spectrum_amp_phase_cuda(torch.from_numpy(x2[None]), n, "rect")
+    assert float(ph2[0, 0]) == pytest.approx(np.pi, abs=1e-6)   # +pi, never -pi
+    assert float(ph2[0, -1]) == pytest.approx(np.pi, abs=1e-6)
+
+
+def test_k1_input_rules():
+    x = torch.zeros(2, 256)
+    with pytest.raises(NotImplementedError, match="K3"):
+        fft_cuda.spectrum_amplitude_cuda(x, 256, sides="two")
+    with pytest.raises(NotImplementedError, match="K3"):
+        fft_cuda.spectrum_amp_phase_cuda(torch.zeros(2, 128), 128)
+    with pytest.raises(ValueError, match="power of two"):
+        fft_cuda.spectrum_amplitude_cuda(torch.zeros(4, 384), 384)
+    with pytest.raises(ValueError, match="frame length"):
+        fft_cuda.spectrum_amplitude_cuda(x, 512)
+    with pytest.raises(ValueError, match="unknown precision"):
+        fft_cuda.spectrum_amplitude_cuda(x, 256, precision="bogus")
+
+
+@pytest.mark.parametrize("window", ["rect", "hann", "blackman"])
+@pytest.mark.parametrize("n", [256, 4096])
+def test_k1_window_bit_equal_to_jax_plan(n, window):
+    ref = jpallas._onesided_plan(n, window, "highest")[0]
+    got = fft_cuda.onesided_window(n, window)
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    np.testing.assert_array_equal(got, ref)
+
+
+# ── K2 ───────────────────────────────────────────────────────────────
+
+
+@pytest.mark.parametrize("n", [64, 256, 1024])
+def test_k2_plain_matches_pallas(n):
+    z = RNG.standard_normal((4, n)) + 1j * RNG.standard_normal((4, n))
+    re = z.real.astype(np.float32)
+    im = z.imag.astype(np.float32)
+    jz = JComplexArray(jnp.asarray(re), jnp.asarray(im))
+    fwd = jpallas.fft_pallas(jz, interpret=True, precision="highest")
+    inv = jpallas.ifft_pallas(jz, interpret=True, precision="highest")
+    for inverse, ref in ((False, fwd), (True, inv)):
+        ore, oim = fft_cuda.fft_rows_cuda(torch.from_numpy(re), torch.from_numpy(im),
+                                          inverse)
+        got = np.stack([ore.numpy(), oim.numpy()])
+        want = np.stack([np.asarray(ref.real), np.asarray(ref.imag)])
+        assert snr_db(want, got) >= 120.0, (n, inverse)
+
+
+def test_k2_roundtrip_and_input_rules():
+    z = RNG.standard_normal((3, 128)).astype(np.float32)
+    re, im = torch.from_numpy(z), torch.zeros(3, 128)
+    fre, fim = fft_cuda.fft_rows_cuda(re, im)
+    bre, bim = fft_cuda.fft_rows_cuda(fre, fim, inverse=True, donate=True)
+    np.testing.assert_allclose(bre.numpy(), z, atol=1e-6)
+    np.testing.assert_allclose(bim.numpy(), 0.0, atol=1e-6)
+    with pytest.raises(ValueError, match="power of two"):
+        fft_cuda.fft_rows_cuda(torch.zeros(2, 12), torch.zeros(2, 12))
+    with pytest.raises(ValueError, match=r"\[B, n\]"):
+        fft_cuda.fft_rows_cuda(torch.zeros(2, 8), torch.zeros(2, 4))
+
+
+@pytest.mark.parametrize("n", [2, 128, 1024, 16384])
+def test_k2_twiddles_bit_equal_to_jax(n):
+    c, s = fft_cuda.row_twiddles(n)
+    jc, js = jfft._twiddles(n, -1.0, np.float32)
+    assert c.dtype == np.float32
+    np.testing.assert_array_equal(c, jc[:, 0])
+    np.testing.assert_array_equal(s, js[:, 0])
+
+
+# ── shared ───────────────────────────────────────────────────────────
+
+
+def test_launch_counters_stay_zero_on_cpu():
+    before = dict(fft_cuda.LAUNCHES)
+    fft_cuda.spectrum_amp_phase_cuda(torch.zeros(2, 256), 256)
+    fft_cuda.fft_rows_cuda(torch.zeros(2, 64), torch.zeros(2, 64))
+    dispatch.fft(torch.zeros(2, 64), impl="cuda")
+    assert fft_cuda.LAUNCHES == before == {"spectrum_onesided": 0, "fft_rows": 0}
+
+
+def test_resolve_precision():
+    assert fft_cuda.resolve_precision(None) == "highest"
+    assert fft_cuda.resolve_precision("auto") == "highest"
+    assert fft_cuda.resolve_precision("highest") == "highest"
+    assert fft_cuda.resolve_precision("bf16x3") == "bf16x3"
+    with pytest.raises(ValueError, match="unknown precision"):
+        fft_cuda.resolve_precision("fp8")
+    dispatch.set_fft_precision("bf16x3")
+    try:
+        assert fft_cuda.resolve_precision(None) == "bf16x3"
+    finally:
+        dispatch.set_fft_precision("auto")
+    with pytest.raises(ValueError, match="unknown fft precision"):
+        dispatch.set_fft_precision("fp8")
+
+
+def test_build_is_keyed_by_source_hash(tmp_path, monkeypatch):
+    for src in _build.CSRC.glob("*.cu*"):
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build._digest()
+    assert first == _build._digest()
+    with open(tmp_path / "fft_rows.cu", "a") as f:
+        f.write("\n// edited\n")
+    assert _build._digest() != first
+    assert [p.name for p in _build.sources()] == ["fft_rows.cu",
+                                                 "spectrum_onesided.cu"]
+
+
+def test_build_raises_without_nvcc(tmp_path, monkeypatch):
+    import torch.utils.cpp_extension as cpp_ext
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(cpp_ext, "CUDA_HOME", None)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
+    assert not (tmp_path / "_build").exists()
