@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's spectrum path once on one CUDA card and check it.
+"""Drive the PyTorch port's spectrum and spectrogram paths once on one CUDA
+card and check them.
 
     python3 chip_smoke.py
 
@@ -9,7 +10,15 @@ Phases (one line each; any failed gate exits non-zero):
   3. K1 (one-sided spectrum) against float64 numpy and its plain version;
   4. K2 (row FFT) against float64 numpy, its roundtrip and its plain version;
   5. the main path: spectrum() and the flagship step, with launch counts;
-  6. kernel and plain-version times with CUDA events.
+  6. kernel and plain-version times with CUDA events;
+  7. config 2 (bench.py's 4096-point 75%-overlap spectrogram of 10 s of
+     48 kHz audio): the default (bench.py's own call), K1, K4, K3 and
+     float64 routes against float64 numpy, K4 bit-equal to K1, the
+     stft -> istft roundtrip and the streaming carry;
+  8. K3 at small n against float64 numpy and its plain version;
+  9. launch counts of the spectrogram path, one call at a time (the
+     default route must launch K4 and nothing else);
+ 10. the spectrogram routes at full width, [128, 480000], with CUDA events.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -28,9 +37,17 @@ SEED = 1337
 MAIN = (16384, 1024)     # bench.py's headline shape: 16384 Hann frames of 1024
 K1_SHAPES = (MAIN, (4096, 4096))
 K2_SHAPES = (MAIN, (16384, 128), (1024, 16384))
-GATE_DB = 105.0          # bench.py headline and roundtrip gates
+GATE_DB = 105.0          # bench.py headline, roundtrip and config-2 gates
 SMALL_N_GATE_DB = 120.0  # bench.py small-n FFT gate
 PHASE_TOL = 1e-4         # rad, where amp > 1e-3 (tests/test_pallas_fft.py)
+C2_LEN = 480000          # bench.py config 2 (bench.py:208-227): 10 s at 48 kHz
+C2_N, C2_HOP = 4096, 1024
+C2_TONE = 997.0
+C2_CHANNELS = 128        # phase 10's width: 128 channels of the config-2 signal
+C2_CHUNK = 45 * C2_HOP   # stft_step chunks: a whole number of hops
+K3_SHAPES = ((16384, 128, "one"), (16384, 128, "two"), (16384, 100, "one"),
+             (4096, 4096, "two"))
+AB_ROUNDS = 6            # phase 10's alternating K1-route / K4-route rounds
 
 
 def say(*parts) -> None:
@@ -70,6 +87,30 @@ def wrapped(d) -> np.ndarray:
     return np.abs(np.angle(np.exp(1j * np.asarray(d, np.float64))))
 
 
+def config2_signal() -> np.ndarray:
+    """bench.py's config-2 input at its full length: a 997 Hz tone, a 4 kHz
+    chirp and 0.01*N(0,1), float64."""
+    rng = np.random.default_rng(SEED)
+    t = np.arange(C2_LEN) / SR
+    return (0.7 * np.sin(2 * np.pi * C2_TONE * t)
+            + 0.2 * np.sin(2 * np.pi * (4000.0 + 300.0 * t) * t)
+            + 0.01 * rng.standard_normal(C2_LEN))
+
+
+def twosided_oracle(x: np.ndarray, window: np.ndarray, sides: str) -> np.ndarray:
+    """|FFT(x * w)| / n over all bins; one-sided: bins 0..n//2, every bin
+    but DC and (even n) Nyquist doubled."""
+    n = x.shape[-1]
+    ref = np.abs(np.fft.fft(x.astype(np.float64) * window, axis=-1)) / n
+    if sides == "two":
+        return ref
+    ref = ref[..., : n // 2 + 1]
+    ref[..., 1:] *= 2.0
+    if n % 2 == 0:
+        ref[..., -1] /= 2.0
+    return ref
+
+
 def main() -> int:
     import torch
 
@@ -81,6 +122,9 @@ def main() -> int:
     from pragma_dsp_tpu_torch.core import ComplexArray
     from pragma_dsp_tpu_torch.entry import entry
     from pragma_dsp_tpu_torch.ops import _build, dispatch, fft_cuda
+    from pragma_dsp_tpu_torch.stream import (frame_signal, istft, spectrogram,
+                                             spectrogram_amplitude, stft,
+                                             stft_step, stft_stream_init)
     from pragma_dsp_tpu_torch.xform import window_values
 
     dev = torch.device("cuda", 0)
@@ -252,16 +296,219 @@ def main() -> int:
             f"({batch * n / ms / 1e3:.0f} Msamples/s), plain {pms:.4f} ms "
             f"({batch * n / pms / 1e3:.0f} Msamples/s)")
 
+    # 7. config 2: the spectrogram routes against float64 numpy
+    sig = config2_signal()
+    sig32 = sig.astype(np.float32)
+    xs = cuda(sig32)
+    win = window_values("hann", C2_N)
+    n_frames = 1 + (C2_LEN - C2_N) // C2_HOP
+    idx = np.arange(n_frames)[:, None] * C2_HOP + np.arange(C2_N)[None, :]
+    ref_one = onesided_oracle(sig[idx], win)
+    ref_two = twosided_oracle(sig[idx], win, "two")
+    a_def = spectrogram_amplitude(xs, C2_N, C2_HOP, "hann")   # as bench.py:217 calls it
+    a_k1 = spectrogram_amplitude(xs, C2_N, C2_HOP, "hann", framed=False)
+    a_k4 = spectrogram_amplitude(xs, C2_N, C2_HOP, "hann", framed=True)
+    a_k3 = spectrogram_amplitude(xs, C2_N, C2_HOP, "hann", sides="two")
+    a_f64 = spectrogram_amplitude(cuda(sig), C2_N, C2_HOP, "hann")
+    r = spectrogram(xs, C2_N, C2_HOP, "hann", sample_rate=SR)
+    torch.cuda.synchronize()
+    c2 = {}
+    for label, got, ref in (("default route (framed=None)", a_def, ref_one),
+                            ("K1 route (framed=False)", a_k1, ref_one),
+                            ("K4 route (framed=True)", a_k4, ref_one),
+                            ("spectrogram() amplitude", r.amplitude, ref_one),
+                            ("K3 route (sides='two')", a_k3, ref_two),
+                            ("float64 route (stft, Stockham)", a_f64, ref_one)):
+        got = host(got)
+        gate(got.shape == ref.shape and np.isfinite(got).all(),
+             f"config 2 {label}: shape {got.shape} or non-finite")
+        c2[label] = snr_db(ref, got)
+        gate(c2[label] >= GATE_DB, f"config 2 {label}: SNR {c2[label]:.1f} dB")
+    say(f"[7] config 2 [{C2_LEN}] n_fft {C2_N} hop {C2_HOP} Hann, SNR vs f64 (gate >= "
+        f"{GATE_DB}): " + ", ".join(f"{k} {v:.1f} dB" for k, v in c2.items()))
+    amp4, ph4 = fft_cuda.framed_spectrum_amp_phase_cuda(xs, C2_N, C2_HOP, "hann")
+    amp1, ph1 = fft_cuda.spectrum_amp_phase_cuda(
+        frame_signal(xs, C2_N, C2_HOP).contiguous(), C2_N, "hann")
+    gate(torch.equal(amp4, amp1) and torch.equal(ph4, ph1),
+         "config 2: K4 differs from K1 on the materialised frames")
+    gate(torch.equal(r.amplitude, amp4) and torch.equal(r.phase, ph4),
+         "config 2: spectrogram() differs from the fused kernel's output")
+    pamp, pph = (host(t) for t in fft_cuda.framed_spectrum_amp_phase_plain(
+        xs[None], C2_N, C2_HOP, "hann"))
+    mask = pamp[0] > 1e-3
+    dph = float(wrapped(host(r.phase)[mask] - pph[0][mask]).max())
+    gate(dph <= PHASE_TOL, f"config 2: phase differs from plain by {dph:.2e} rad")
+    bin_hz = SR / C2_N
+    peaks = host(r.peak.frequency)
+    gate(peaks.shape == (n_frames,) and float(np.abs(peaks - C2_TONE).max()) <= bin_hz,
+         f"config 2: a frame's peak is more than one bin from {C2_TONE} Hz")
+    spec = stft(xs, C2_N, C2_HOP, "hann")
+    rec = host(istft(spec, C2_HOP, "hann", length=C2_LEN))
+    inner = slice(C2_N, rec.shape[-1] - C2_N)
+    s_rt = snr_db(sig32[inner], rec[inner])
+    gate(s_rt >= GATE_DB, f"config 2: stft -> istft interior SNR {s_rt:.1f} dB")
+    state = stft_stream_init(C2_N, C2_HOP, device=dev)
+    streamed = []
+    for i in range(10):
+        state, out = stft_step(state, xs[i * C2_CHUNK:(i + 1) * C2_CHUNK],
+                               C2_N, C2_HOP, "hann")
+        streamed.append(out)
+    batch_spec = stft(torch.cat([torch.zeros(C2_N - C2_HOP, device=dev),
+                                 xs[:10 * C2_CHUNK]]), C2_N, C2_HOP, "hann")
+    s_re = torch.cat([o.real for o in streamed])
+    s_im = torch.cat([o.imag for o in streamed])
+    gate(s_re.shape == batch_spec.real.shape == (450, C2_N)
+         and torch.equal(s_re, batch_spec.real) and torch.equal(s_im, batch_spec.imag),
+         "config 2: stft_step differs from stft of the zero-prefixed signal")
+    say(f"[7] K4 == K1 on {n_frames} frames (amp and phase bit-equal); spectrogram() "
+        f"phase vs plain {dph:.2e} rad; peaks {peaks.min():.2f}..{peaks.max():.2f} Hz "
+        f"(bin {bin_hz:.2f} Hz); stft->istft interior {s_rt:.1f} dB; "
+        f"stft_step x10 == stft on 450 frames")
+
+    # 8. K3 at small n against float64 and its plain version
+    k3 = {}
+    for batch, n, sides in K3_SHAPES:
+        x = bench_input(batch, n)
+        xd = cuda(x)
+        amp = fft_cuda.spectrum_amplitude_cuda(xd, n, "hann", sides)
+        plain = fft_cuda.spectrum_amplitude_plain(xd, n, "hann", sides)
+        torch.cuda.synchronize()
+        amp, plain = host(amp), host(plain)
+        ref = twosided_oracle(x, window_values("hann", n), sides)
+        need = SMALL_N_GATE_DB if n <= 128 else GATE_DB
+        s_ref, s_plain = snr_db(ref, amp), snr_db(plain, amp)
+        err = float(np.abs(amp - plain).max())
+        say(f"[8] K3 [{batch}, {n}] sides={sides}: SNR vs f64 {s_ref:.1f} dB, vs plain "
+            f"{s_plain:.1f} dB (gate >= {need}), max|amp-plain| {err:.3e}")
+        gate(amp.shape == ref.shape and np.isfinite(amp).all(),
+             f"K3 {n} {sides}: shape or non-finite")
+        gate(s_ref >= need, f"K3 {n} {sides}: SNR vs f64 {s_ref:.1f} dB")
+        gate(s_plain >= need, f"K3 {n} {sides}: SNR vs plain {s_plain:.1f} dB")
+        k3[(batch, n, sides)] = dict(x=xd, err=err)
+
+    # 9. the spectrogram path, counted one call at a time
+    def counted(fn) -> dict:
+        for key in fft_cuda.LAUNCHES:
+            fft_cuda.LAUNCHES[key] = 0
+        fn()
+        torch.cuda.synchronize()
+        return dict(fft_cuda.LAUNCHES)
+
+    path_launches = {}
+    for label, fn, kname in (
+            ("spectrogram_amplitude() as bench.py calls it",
+             lambda: spectrogram_amplitude(xs, C2_N, C2_HOP, "hann"), "stft_onesided"),
+            ("spectrogram() with framed=None",
+             lambda: spectrogram(xs, C2_N, C2_HOP, "hann", SR), "stft_onesided"),
+            ("spectrogram(framed=True)",
+             lambda: spectrogram(xs, C2_N, C2_HOP, "hann", SR, framed=True),
+             "stft_onesided"),
+            ("spectrogram_amplitude(framed=False)",
+             lambda: spectrogram_amplitude(xs, C2_N, C2_HOP, "hann", framed=False),
+             "spectrum_onesided"),
+            ("spectrogram_amplitude(float64)",
+             lambda: spectrogram_amplitude(cuda(sig), C2_N, C2_HOP, "hann"), None),
+            ("spectrogram_amplitude(sides='two')",
+             lambda: spectrogram_amplitude(xs, C2_N, C2_HOP, "hann", "two"),
+             "spectrum_twosided"),
+            ("stft", lambda: stft(xs, C2_N, C2_HOP, "hann"), "fft_rows"),
+            ("istft", lambda: istft(spec, C2_HOP, "hann"), "fft_rows")):
+        got = counted(fn)
+        want = {key: int(key == kname) for key in fft_cuda.LAUNCHES}
+        say(f"[9] launches during {label}: {got}")
+        gate(got == want, f"{label} launched {got}, expected {want}")
+        if kname is not None:
+            path_launches.setdefault(kname, got[kname])
+
+    # 10. full width: 128 channels of the config-2 signal, CUDA events
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    xw = xs[None].repeat(C2_CHANNELS, 1) + 0.01 * torch.randn(
+        (C2_CHANNELS, C2_LEN), generator=gen, device=dev)
+    frames_w = frame_signal(xw, C2_N, C2_HOP).contiguous()
+    samples = C2_CHANNELS * C2_LEN
+    wide = {
+        "K4 route amp": lambda: spectrogram_amplitude(xw, C2_N, C2_HOP, "hann",
+                                                      framed=True),
+        "K1 route amp": lambda: spectrogram_amplitude(xw, C2_N, C2_HOP, "hann",
+                                                      framed=False),
+        "K4 route amp+phase": lambda: fft_cuda.framed_spectrum_amp_phase_cuda(
+            xw, C2_N, C2_HOP, "hann"),
+        "K1 route amp+phase": lambda: fft_cuda.spectrum_amp_phase_cuda(
+            frame_signal(xw, C2_N, C2_HOP), C2_N, "hann"),
+        "K3 route two-sided": lambda: spectrogram_amplitude(xw, C2_N, C2_HOP, "hann",
+                                                            "two"),
+        "K3 on frames": lambda: fft_cuda.spectrum_amplitude_cuda(
+            frames_w, C2_N, "hann", "two"),
+    }
+    plains = {
+        "plain amp (K1/K4)": lambda: fft_cuda.framed_spectrum_amp_phase_plain(
+            xw, C2_N, C2_HOP, "hann", with_phase=False),
+        "plain amp+phase (K1/K4)": lambda: fft_cuda.framed_spectrum_amp_phase_plain(
+            xw, C2_N, C2_HOP, "hann"),
+        "plain two-sided (K3) on frames": lambda: fft_cuda.spectrum_twosided_plain(
+            frames_w.reshape(-1, C2_N), C2_N, "hann"),
+    }
+    base = torch.cuda.memory_allocated()
+    wide_ms, peak_mb = {}, {}
+    for label, fn in list(wide.items()) + list(plains.items()):
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peak_mb[label] = (torch.cuda.max_memory_allocated() - base) / 1e6
+        # The plain versions are tens of times slower: fewer runs.
+        wide_ms[label] = timed(fn, runs=3, inner=1) if label in plains else timed(fn)
+        say(f"[10] {label} [{C2_CHANNELS}, {C2_LEN}] on {name} ({card}): "
+            f"{wide_ms[label]:.4f} ms, {samples / wide_ms[label] / 1e3:.0f} Msamples/s, "
+            f"peak {peak_mb[label]:.1f} MB above the inputs")
+    # The framed=None rule rests on this pair: rounds of K1, K4, K4, K1.
+    pair = {"K1 route amp": [], "K4 route amp": []}
+    for i in range(AB_ROUNDS):
+        order = ("K1 route amp", "K4 route amp")[::1 if i % 2 == 0 else -1]
+        for label in order + order[::-1]:
+            pair[label].append(timed(wide[label], runs=3, inner=5))
+    k1_r, k4_r = (np.asarray(pair[k]) for k in ("K1 route amp", "K4 route amp"))
+    k4_wins = int(sum(a < b for a, b in zip(k4_r, k1_r)))
+    say(f"[10] A/B over {AB_ROUNDS} rounds of (K1, K4, K4, K1) alternating: K1 route "
+        f"median {np.median(k1_r):.4f} ms (IQR {np.percentile(k1_r, 25):.4f}-"
+        f"{np.percentile(k1_r, 75):.4f}), K4 route median {np.median(k4_r):.4f} ms "
+        f"(IQR {np.percentile(k4_r, 25):.4f}-{np.percentile(k4_r, 75):.4f}); K4 faster "
+        f"in {k4_wins} of {len(k4_r)} samples")
+    k4_amp = wide["K4 route amp"]()
+    gate(torch.equal(k4_amp, wide["K1 route amp"]()),
+         "full width: the K4 route differs from the K1 route")
+    k4_err = float((k4_amp - plains["plain amp (K1/K4)"]()[0]).abs().max())
+    k3_frames = wide["K3 on frames"]()
+    k3_err = float((k3_frames - plains["plain two-sided (K3) on frames"]()
+                    .reshape(k3_frames.shape)).abs().max())
+    del k4_amp, k3_frames
+    batch, n, sides = K3_SHAPES[1]        # [16384, 128] two-sided
+    xk = k3[K3_SHAPES[1]]["x"]
+    k3_small = (timed(lambda: fft_cuda.spectrum_amplitude_cuda(xk, n, "hann", sides)),
+                timed(lambda: fft_cuda.spectrum_twosided_plain(xk, n, "hann")))
+    say(f"[10] K3 two-sided [{batch}, {n}] on {name} ({card}): kernel {k3_small[0]:.4f} ms "
+        f"({batch * n / k3_small[0] / 1e3:.0f} Msamples/s), plain {k3_small[1]:.4f} ms "
+        f"({batch * n / k3_small[1] / 1e3:.0f} Msamples/s)")
+    say(f"[10] max|kernel-plain| at full width: K4 amp {k4_err:.3e}, K3 {k3_err:.3e}")
+
     kernels = []
-    for kname, src, replaces, err in (
+    for kname, src, replaces, err, (ms, pms), count in (
             ("spectrum_onesided", "spectrum_onesided.cu",
-             "pragma_dsp_tpu/ops/fft_pallas.py:1158", k1[MAIN]["err"]),
-            ("fft_rows", "fft_rows.cu",
-             "pragma_dsp_tpu/ops/fft_pallas.py:338", k2[MAIN]["err"])):
-        ms, pms = times[(kname, *MAIN)]
+             "pragma_dsp_tpu/ops/fft_pallas.py:1158", k1[MAIN]["err"],
+             times[("spectrum_onesided", *MAIN)], launches["spectrum_onesided"]),
+            ("fft_rows", "fft_rows.cu", "pragma_dsp_tpu/ops/fft_pallas.py:338",
+             k2[MAIN]["err"], times[("fft_rows", *MAIN)], launches["fft_rows"]),
+            ("spectrum_twosided", "spectrum_twosided.cu",
+             "pragma_dsp_tpu/ops/fft_pallas.py:1550", k3_err,
+             (wide_ms["K3 on frames"], wide_ms["plain two-sided (K3) on frames"]),
+             path_launches["spectrum_twosided"]),
+            ("stft_onesided", "stft_onesided.cu",
+             "pragma_dsp_tpu/ops/fft_pallas.py:1173", k4_err,
+             (wide_ms["K4 route amp"], wide_ms["plain amp (K1/K4)"]),
+             path_launches["stft_onesided"])):
+        gate(count > 0, f"{kname} was not launched on its path")
         kernels.append({"name": kname, "route": "cuda",
                         "source": f"pragma_dsp_tpu_torch/csrc/{src}",
-                        "replaces": replaces, "launches": launches[kname],
+                        "replaces": replaces, "launches": count,
                         "max_abs_err": err, "ms": ms, "plain_ms": pms})
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

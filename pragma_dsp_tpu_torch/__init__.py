@@ -2,9 +2,9 @@
 
 The JAX package ``pragma_dsp_tpu`` stays the reference; this package
 mirrors its subpackages (``core``, ``xform``, ``ops``, ``public``,
-``stream``) on PyTorch tensors, with the TPU kernels of the spectrum path
-rewritten by hand in CUDA for the H100 (``csrc/``). It exports only what
-is ported (see PORT.md).
+``stream``) on PyTorch tensors, with the TPU kernels of the spectrum and
+spectrogram paths rewritten by hand in CUDA for the H100 (``csrc/``). It
+exports only what is ported (see PORT.md).
 
 * beginner  — ``pragma_dsp_tpu_torch.spectrum`` (root export)
 * power     — ``pragma_dsp_tpu_torch.xform``

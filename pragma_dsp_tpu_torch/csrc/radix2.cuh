@@ -1,13 +1,14 @@
-// Shared-memory radix-2 FFT core used by both row kernels (K1, K2).
+// Shared-memory radix-2 FFT core used by the row kernels (K1, K2, K3, K4).
 //
-// One thread block owns one row. The row lives in shared memory as two f32
-// planes (re, im) of n values each; the load permutes it into bit-reversed
-// order, so an in-place decimation-in-time transform leaves the bins in
-// natural order. In place means one buffer of 8*n bytes: 128 KiB at
+// A thread block owns one row (or, at small n, a few rows stored back to
+// back). A row lives in shared memory as two f32 planes (re, im) of n
+// values each; the load permutes it into bit-reversed order, so an
+// in-place decimation-in-time transform leaves the bins in natural order. In place means one buffer of 8*n bytes: 128 KiB at
 // n = 16384, which fits the 227 KB a block may use, where a ping-pong
 // Stockham pair (256 KiB) would not.
 //
-// Twiddles come in as a table W[k] = (cos, sin)(-2*pi*k/n), k < n/2, built in
+// Twiddles come in as the n-entry table W[m] = (cos, sin)(-2*pi*m/n) that K3's
+// direct DFT also reads; the radix-2 core reads only m < n/2. It is built in
 // float64 on the host and rounded to f32 once, as the JAX plans build theirs.
 // The kernels take no __sinf/__cosf and are compiled without --use_fast_math.
 #pragma once
@@ -21,17 +22,21 @@ static __device__ __forceinline__ unsigned bit_reverse(unsigned i, int log2n) {
   return log2n == 0 ? 0u : (__brev(i) >> (32 - log2n));
 }
 
-// In-place iterative radix-2 DIT over a bit-reversed row in shared memory.
-// `conj` = -1 conjugates the twiddles (inverse transform); no scaling here.
-// Butterflies are strided over the block, since n/2 may exceed blockDim.x.
+// In-place iterative radix-2 DIT over `rows` bit-reversed rows of n points
+// stored back to back in shared memory. `conj` = -1 conjugates the
+// twiddles (inverse transform); no scaling here. Butterflies are strided
+// over the block, since rows*n/2 may exceed blockDim.x. Because every row
+// spans a multiple of each stage's butterfly group, one flat index over all
+// rows' butterflies addresses each row's own elements.
 static __device__ __forceinline__ void radix2_inplace(
     float* sre, float* sim, int n, int log2n,
-    const float* __restrict__ twc, const float* __restrict__ tws, float conj) {
-  const int half_n = n >> 1;
+    const float* __restrict__ twc, const float* __restrict__ tws, float conj,
+    int rows = 1) {
+  const int butterflies = rows * (n >> 1);
   for (int s = 1; s <= log2n; ++s) {
     const int half = 1 << (s - 1);
     const int tw_stride = n >> s;  // W_{2*half}^k = W_n^{k * n / (2*half)}
-    for (int b = threadIdx.x; b < half_n; b += blockDim.x) {
+    for (int b = threadIdx.x; b < butterflies; b += blockDim.x) {
       const int k = b & (half - 1);
       const int i = ((b >> (s - 1)) << s) + k;
       const int j = i + half;

@@ -15,9 +15,8 @@
 // work; that work and its log2(n) barriers, not HBM, may set the time of
 // this first design.
 //
-// DC and Nyquist are exactly real for real input: their imaginary part is
-// forced to +0.0f, so their phase is exactly 0 or +pi (a -0.0 would give -pi).
-#include "radix2.cuh"
+// The per-frame work is onesided_frame (onesided.cuh), shared with K4.
+#include "onesided.cuh"
 
 namespace {
 
@@ -28,28 +27,9 @@ __global__ void spectrum_onesided_kernel(const float* __restrict__ x,
                                          const float* __restrict__ twc,
                                          const float* __restrict__ tws,
                                          int n, int log2n) {
-  extern __shared__ float smem[];
-  float* sre = smem;
-  float* sim = smem + n;
-  const size_t in_row = static_cast<size_t>(blockIdx.x) * n;
-  for (int t = threadIdx.x; t < n; t += blockDim.x) {
-    const unsigned r = bit_reverse(t, log2n);
-    sre[r] = x[in_row + t] * __ldg(win + t);
-    sim[r] = 0.0f;
-  }
-  __syncthreads();
-  radix2_inplace(sre, sim, n, log2n, twc, tws, 1.0f);
-  const int nyquist = n / 2;
-  const float edge_scale = 1.0f / static_cast<float>(n);  // exact: n = 2^k
-  const float scale = 2.0f / static_cast<float>(n);
-  const size_t out_row = static_cast<size_t>(blockIdx.x) * (nyquist + 1);
-  for (int k = threadIdx.x; k <= nyquist; k += blockDim.x) {
-    const bool edge = (k == 0) || (k == nyquist);
-    const float re = sre[k];
-    const float im = edge ? 0.0f : sim[k];
-    amp[out_row + k] = (edge ? edge_scale : scale) * sqrtf(re * re + im * im);
-    if (ph != nullptr) ph[out_row + k] = atan2f(im, re);
-  }
+  const size_t out_row = static_cast<size_t>(blockIdx.x) * (n / 2 + 1);
+  onesided_frame(x + static_cast<size_t>(blockIdx.x) * n, win, amp + out_row,
+                 ph != nullptr ? ph + out_row : nullptr, twc, tws, n, log2n);
 }
 
 }  // namespace

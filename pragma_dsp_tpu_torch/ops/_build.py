@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels (``csrc/``).
 
-The kernels have a plain C interface and are compiled with ``nvcc`` into
-one shared library, loaded with ``ctypes``. The build happens at first use
-into ``pragma_dsp_tpu_torch/_build/`` and is keyed by a hash of the sources
-and flags, so an edited source rebuilds. Nothing here runs at import time:
-the CPU-only test environment has no ``nvcc``.
+The kernels have a plain C interface. Each source is compiled by its own
+``nvcc`` process, all started together, and the objects are linked into one
+shared library, loaded with ``ctypes``. The build happens at first use into
+``pragma_dsp_tpu_torch/_build/`` and is keyed by a hash of the sources and
+flags, so an edited source rebuilds. Nothing here runs at import time: the
+CPU-only test environment has no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ BUILD_DIR = _PKG / "_build"
 
 # No --use_fast_math: it would swap sqrtf/atan2f for approximations.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -34,6 +35,10 @@ _SIGNATURES = {
     "fft_rows_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # x, win, amp, ph (nullable), twc, tws, batch, n, stream
     "spectrum_onesided_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # x, win, amp, cos, sin, batch, n, stream
+    "spectrum_twosided_f32": [_P, _P, _P, _P, _P, _I, _I, _P],
+    # x, win, amp, ph (nullable), twc, tws, batch, length, n, hop, stream
+    "stft_onesided_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -66,6 +71,22 @@ def _nvcc() -> str:
     return found
 
 
+def _run_all(cmds) -> None:
+    """Run the commands as concurrent processes; wait for every one, then
+    raise with the output of those that failed."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                          f"{out}{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> Path:
     """Compile ``csrc/*.cu`` into ``_build/`` unless this exact build exists."""
     target = BUILD_DIR / f"libpragma_dsp_kernels_{_digest()}.so"
@@ -73,15 +94,13 @@ def build() -> Path:
         return target
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, target)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, f"{src.stem}.o") for src in sources()]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                  for src, obj in zip(sources(), objs)])
+        lib = os.path.join(tmp, target.name)
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
+        os.replace(lib, target)
     return target
 
 

@@ -1,13 +1,20 @@
-"""Hand-written CUDA kernels of the spectrum path, each beside its plain
-PyTorch version.
+"""Hand-written CUDA kernels of the spectrum and spectrogram paths, each
+beside its plain PyTorch version.
 
-Counterpart of the K1/K2 part of ``pragma_dsp_tpu/ops/fft_pallas.py``:
+Counterpart of the K1-K4 part of ``pragma_dsp_tpu/ops/fft_pallas.py``:
 
 * K1 ``spectrum_onesided`` (``csrc/spectrum_onesided.cu``) replaces
   ``_spectrum_onesided_kernel`` + ``_onesided_body``: window -> FFT ->
   one-sided scaled amplitude, optionally phase, natural bin order.
 * K2 ``fft_rows`` (``csrc/fft_rows.cu``) replaces ``_fft2d_kernel``: a
   batched complex FFT over the last axis, natural order in and out.
+* K3 ``spectrum_twosided`` (``csrc/spectrum_twosided.cu``) replaces
+  ``_spectrum_kernel``: window -> DFT -> |X|/n over all n bins, for any
+  n <= 128 and power-of-two n above; it serves ``sides="two"`` and the
+  one-sided n <= 128 spectra of :func:`spectrum_amplitude_cuda`.
+* K4 ``stft_onesided`` (``csrc/stft_onesided.cu``) replaces
+  ``_stft_onesided_kernel``: K1 read straight from a signal at a hop, so a
+  spectrogram never materialises its overlapping frames.
 
 Each wrapper takes its plain version only because the tensor it was given
 lies on the CPU. For a CUDA tensor it launches its kernel or raises; there
@@ -28,28 +35,42 @@ import numpy as np
 import torch
 
 from ..core.complex import is_power_of_two
-from ..core.fft import _twiddles64, fft_axis0
+from ..core.fft import fft_axis0
 from ..xform.fourier import create_window, window_values
 from . import _build
 
 __all__ = [
     "LAUNCHES",
     "MAX_ROWS_N",
-    "MIN_ONESIDED_N",
+    "MAX_DFT_N",
+    "FRAMED_HOP_QUANTUM",
     "resolve_precision",
     "spectrum_amplitude_cuda",
+    "spectrum_amplitude_plain",
     "spectrum_amp_phase_cuda",
     "spectrum_amp_phase_plain",
+    "spectrum_twosided_plain",
+    "framed_spectrum_supported",
+    "framed_spectrum_amplitude_cuda",
+    "framed_spectrum_amp_phase_cuda",
+    "framed_spectrum_amp_phase_plain",
     "fft_rows_cuda",
     "fft_rows_plain",
 ]
 
 # A row of complex f32 must fit one block's shared memory (8*n bytes).
 MAX_ROWS_N = 16384
-# Below this the JAX package uses its two-sided kernel K3 (not yet ported).
-MIN_ONESIDED_N = 256
+# K3 takes any n up to this through a direct DFT, as the JAX package's
+# dense-DFT route does (fft_pallas.py:1638-1641); above it, n must be a
+# power of two, and one-sided spectra go to K1.
+MAX_DFT_N = 128
+# The framed kernel's hop contract, kept exactly as the JAX predicate
+# (fft_pallas.py:1404-1409). It comes from the TPU's 128-lane tile; K4
+# could take any hop, but the port does not widen the public contract.
+FRAMED_HOP_QUANTUM = 128
 
-LAUNCHES = {"spectrum_onesided": 0, "fft_rows": 0}
+LAUNCHES = {"spectrum_onesided": 0, "fft_rows": 0, "spectrum_twosided": 0,
+            "stft_onesided": 0}
 
 _PRECISIONS = ("highest", "bf16x3")
 
@@ -77,20 +98,38 @@ def onesided_window(n: int, window: str) -> np.ndarray:
     return window_values(window, n).reshape(1, n).astype(np.float32)
 
 
-def row_twiddles(n: int) -> Tuple[np.ndarray, np.ndarray]:
-    """(cos, sin) of -2*pi*k/n, k < n/2, as f32: the table both kernels
-    read, bit-equal to the Stockham twiddles of size n."""
-    c, s = _twiddles64(n, -1.0)
-    return c[:, 0].astype(np.float32), s[:, 0].astype(np.float32)
+def _dft64(n: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(cos, sin) of -2*pi*m/n, m < n, in float64 (the Stockham twiddles'
+    formula, extended to a whole turn)."""
+    ang = -1.0 * 2.0 * np.pi * np.arange(n, dtype=np.float64) / n
+    return np.cos(ang), np.sin(ang)
+
+
+def dft_table(n: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The n-entry table every kernel reads, rounded once to f32. K3's
+    direct DFT indexes all of it by (k*j) mod n; the radix-2 core reads the
+    first n/2 entries, bit-equal to the Stockham twiddles of size n."""
+    c, s = _dft64(n)
+    return c.astype(np.float32), s.astype(np.float32)
 
 
 @functools.lru_cache(maxsize=32)
 def _device_tables(n: int, window: Optional[str], device: torch.device):
-    twc, tws = row_twiddles(n)
-    tabs = [torch.from_numpy(twc), torch.from_numpy(tws)]
+    """(cos, sin[, window]) on ``device``: :func:`dft_table` and the f32
+    window row."""
+    tabs = [torch.from_numpy(t) for t in dft_table(n)]
     if window is not None:
         tabs.append(torch.from_numpy(onesided_window(n, window)[0]))
     return tuple(t.to(device) for t in tabs)
+
+
+@functools.lru_cache(maxsize=32)
+def _dft_matrices(n: int, dtype: torch.dtype, device: torch.device):
+    """Dense [n, n] DFT matrices C[j, k], S[j, k] = (cos, sin)(-2*pi*jk/n),
+    from the float64 table indexed by (j*k) mod n."""
+    idx = np.outer(np.arange(n), np.arange(n)) % n
+    return tuple(torch.from_numpy(t[idx]).to(device=device, dtype=dtype)
+                 for t in _dft64(n))
 
 
 # ── K1: one-sided spectrum ───────────────────────────────────────────
@@ -141,18 +180,7 @@ def _launch_spectrum_onesided(x: torch.Tensor, n: int, window: str,
     return amp, ph
 
 
-def _onesided(x, n: int, window: str, precision: Optional[str],
-              with_phase: bool):
-    resolve_precision(precision)
-    x = torch.as_tensor(x)
-    if x.shape[-1] != n:
-        raise ValueError(f"frame length {x.shape[-1]} != n {n}")
-    if not is_power_of_two(n):
-        raise ValueError(f"spectrum size must be a power of two, got {n}")
-    if n < MIN_ONESIDED_N:
-        raise NotImplementedError(
-            f"n={n} <= 128 runs the two-sided spectrum kernel K3 in the JAX "
-            "package, which is not yet ported (ROADMAP queue 2, K3)")
+def _onesided(x: torch.Tensor, n: int, window: str, with_phase: bool):
     shape = x.shape
     frames = x.reshape(-1, n)
     if frames.is_cuda:
@@ -163,22 +191,66 @@ def _onesided(x, n: int, window: str, precision: Optional[str],
     return amp.reshape(out_shape), (ph.reshape(out_shape) if with_phase else None)
 
 
+def _frames_of(x, n: int, precision: Optional[str]) -> torch.Tensor:
+    resolve_precision(precision)
+    x = torch.as_tensor(x)
+    if x.shape[-1] != n:
+        raise ValueError(f"frame length {x.shape[-1]} != n {n}")
+    return x
+
+
+def _amplitude_frames(x, n: int, precision: Optional[str]) -> torch.Tensor:
+    x = _frames_of(x, n, precision)
+    if n > MAX_DFT_N and not is_power_of_two(n):
+        # Above the direct-DFT bound only power-of-two sizes are covered.
+        raise ValueError(f"spectrum size must be a power of two, got {n}")
+    return x
+
+
+def _fold_one_sided(amp: torch.Tensor, n: int) -> torch.Tensor:
+    """K3's all-bin |X|/n -> bins 0..n//2, every bin but DC and (even n)
+    Nyquist doubled (fft_pallas.py:1646-1661)."""
+    bins = n // 2 + 1
+    double = torch.full((bins,), 2.0, dtype=amp.dtype, device=amp.device)
+    double[0] = 1.0
+    if n % 2 == 0:
+        double[n // 2] = 1.0
+    return amp[..., :bins] * double
+
+
 def spectrum_amplitude_cuda(x, n: int, window: str = "rect",
                             sides: str = "one",
                             precision: Optional[str] = None) -> torch.Tensor:
-    """Fused one-sided amplitude spectrum of real frames [batch..., n]:
-    [..., n//2+1] with DC and Nyquist /n and other bins 2/n
-    (reference src/public/spectrum.ts:45-61). Power-of-two n in
-    256..16384 on CUDA (any power-of-two n >= 256 on the CPU).
+    """Fused amplitude spectrum of real frames [batch..., n]: [..., n//2+1]
+    one-sided (DC and, for even n, Nyquist /n; other bins 2/n), or
+    [..., n] two-sided (all bins /n) for ``sides="two"``
+    (reference src/public/spectrum.ts:45-72).
 
-    sides="two" and n <= 128 run K3 in the JAX package, which is not yet
-    ported: they raise NotImplementedError.
+    The routes of spectrum_amplitude_pallas: one-sided power-of-two n > 128
+    runs K1; sides="two" and any n <= 128 (power of two or not) run K3.
+    Above 128, n must be a power of two (ValueError otherwise); on CUDA,
+    n <= 16384 and float32 only. A CPU tensor runs
+    :func:`spectrum_amplitude_plain`.
     """
-    if sides != "one":
-        raise NotImplementedError(
-            "two-sided fused spectra run kernel K3 in the JAX package, "
-            "which is not yet ported (ROADMAP queue 2, K3)")
-    return _onesided(x, n, window, precision, with_phase=False)[0]
+    x = _amplitude_frames(x, n, precision)
+    if not x.is_cuda:
+        return spectrum_amplitude_plain(x, n, window, sides)
+    if sides == "one" and n > MAX_DFT_N:
+        return _onesided(x, n, window, False)[0]
+    amp = _launch_spectrum_twosided(x.reshape(-1, n), n, window).reshape(x.shape)
+    return amp if sides == "two" else _fold_one_sided(amp, n)
+
+
+def spectrum_amplitude_plain(x, n: int, window: str = "rect",
+                             sides: str = "one") -> torch.Tensor:
+    """:func:`spectrum_amplitude_cuda`'s routes on the plain versions of K1
+    and K3, in the input's dtype: the CPU path and the card's checks."""
+    x = _amplitude_frames(x, n, None)
+    if sides == "one" and n > MAX_DFT_N:
+        amp = spectrum_amp_phase_plain(x.reshape(-1, n), n, window, False)[0]
+        return amp.reshape(x.shape[:-1] + (n // 2 + 1,))
+    amp = spectrum_twosided_plain(x.reshape(-1, n), n, window).reshape(x.shape)
+    return amp if sides == "two" else _fold_one_sided(amp, n)
 
 
 def spectrum_amp_phase_cuda(x, n: int, window: str = "rect",
@@ -187,8 +259,146 @@ def spectrum_amp_phase_cuda(x, n: int, window: str = "rect",
     """Fused one-sided amplitude and phase of real frames [batch..., n] in
     one kernel: (amplitude, phase), both [..., n//2+1], natural bin order.
     Phase is atan2(im, re) of the unnormalised FFT; DC and Nyquist phase is
-    exactly 0 or +pi."""
-    return _onesided(x, n, window, precision, with_phase=True)
+    exactly 0 or +pi. Needs a power-of-two n > 128 (ValueError otherwise,
+    as in the JAX package)."""
+    x = _frames_of(x, n, precision)
+    if n <= MAX_DFT_N or not is_power_of_two(n):
+        raise ValueError(
+            f"fused amp+phase needs a power-of-two n > {MAX_DFT_N}, got {n}")
+    return _onesided(x, n, window, with_phase=True)
+
+
+# ── K3: two-sided amplitude ──────────────────────────────────────────
+
+
+def spectrum_twosided_plain(x: torch.Tensor, n: int, window: str) -> torch.Tensor:
+    """K3's plain version: window -> Stockham FFT (power-of-two n) or a
+    dense DFT matmul (other n) -> hypot -> /n, all n bins of [B, n]."""
+    xw = x * create_window(window, n, dtype=x.dtype, device=x.device)
+    if is_power_of_two(n):
+        re, im = fft_axis0(xw.T, torch.zeros_like(xw.T))
+        re, im = re.T, im.T
+    else:
+        c, s = _dft_matrices(n, x.dtype, x.device)
+        re, im = xw @ c, xw @ s
+    return torch.hypot(re, im) * (1.0 / n)
+
+
+def _launch_spectrum_twosided(x: torch.Tensor, n: int, window: str):
+    if x.dtype != torch.float32:
+        raise TypeError(f"the two-sided spectrum kernel takes float32, got {x.dtype}")
+    if n > MAX_ROWS_N:
+        raise NotImplementedError(
+            f"two-sided spectrum kernel covers n <= {MAX_ROWS_N}, got {n}: "
+            "larger frames are still to be ported (ROADMAP queue 2, K3)")
+    x = x.contiguous()
+    batch = x.shape[0]
+    amp = torch.empty((batch, n), dtype=torch.float32, device=x.device)
+    if batch == 0:
+        return amp
+    lib = _build.library()
+    cos, sin, win = _device_tables(n, window, x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = lib.spectrum_twosided_f32(
+            x.data_ptr(), win.data_ptr(), amp.data_ptr(), cos.data_ptr(),
+            sin.data_ptr(), batch, n, stream)
+    _build.check(lib, code, "spectrum_twosided")
+    LAUNCHES["spectrum_twosided"] += 1
+    return amp
+
+
+# ── K4: framed one-sided spectrogram ─────────────────────────────────
+
+
+def framed_spectrum_supported(n: int, hop: int, sides: str = "one") -> bool:
+    """True when the framed (signal-in) kernel covers this (n, hop, sides):
+    one-sided, power-of-two n > 128, hop a multiple of 128 that divides n.
+    The same predicate as the JAX package's."""
+    return (sides == "one" and n > MAX_DFT_N and is_power_of_two(n)
+            and hop % FRAMED_HOP_QUANTUM == 0 and hop <= n and n % hop == 0)
+
+
+def framed_spectrum_amp_phase_plain(x: torch.Tensor, n: int, hop: int,
+                                    window: str, with_phase: bool = True):
+    """K4's plain version: frames ``x.unfold`` of a [B, L] signal, then
+    K1's plain version; ([B, F, n//2+1], phase or None)."""
+    frames = x.unfold(-1, n, hop)
+    amp, ph = spectrum_amp_phase_plain(frames.reshape(-1, n), n, window,
+                                       with_phase)
+    out_shape = frames.shape[:-1] + (n // 2 + 1,)
+    return amp.reshape(out_shape), (ph.reshape(out_shape) if with_phase else None)
+
+
+def _launch_stft_onesided(x: torch.Tensor, n: int, hop: int, window: str,
+                          with_phase: bool):
+    if x.dtype != torch.float32:
+        raise TypeError(f"the framed spectrum kernel takes float32, got {x.dtype}")
+    if n > MAX_ROWS_N:
+        raise NotImplementedError(
+            f"framed spectrum kernel covers n <= {MAX_ROWS_N}, got {n}: "
+            "larger frames are still to be ported (ROADMAP queue 2, K4)")
+    x = x.contiguous()
+    batch, length = x.shape
+    frames = 1 + (length - n) // hop
+    amp = torch.empty((batch, frames, n // 2 + 1), dtype=torch.float32,
+                      device=x.device)
+    ph = torch.empty_like(amp) if with_phase else None
+    if batch == 0:
+        return amp, ph
+    lib = _build.library()
+    twc, tws, win = _device_tables(n, window, x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = lib.stft_onesided_f32(
+            x.data_ptr(), win.data_ptr(), amp.data_ptr(),
+            ph.data_ptr() if with_phase else None,
+            twc.data_ptr(), tws.data_ptr(), batch, length, n, hop, stream)
+    _build.check(lib, code, "stft_onesided")
+    LAUNCHES["stft_onesided"] += 1
+    return amp, ph
+
+
+def _framed(x, n: int, hop: int, window: str, precision: Optional[str],
+            with_phase: bool):
+    resolve_precision(precision)
+    if not framed_spectrum_supported(n, hop):
+        raise ValueError(
+            f"framed spectrum needs one-sided pow-2 n > {MAX_DFT_N} with "
+            f"hop % {FRAMED_HOP_QUANTUM} == 0 dividing n; got n={n}, hop={hop}")
+    x = torch.as_tensor(x)
+    shape = x.shape
+    signals = x.reshape(-1, shape[-1])
+    if shape[-1] < n:
+        raise ValueError(f"signal length {shape[-1]} < frame size {n}")
+    if signals.is_cuda:
+        amp, ph = _launch_stft_onesided(signals, n, hop, window, with_phase)
+    else:
+        amp, ph = framed_spectrum_amp_phase_plain(signals, n, hop, window,
+                                                  with_phase)
+    out_shape = shape[:-1] + amp.shape[-2:]
+    return amp.reshape(out_shape), (ph.reshape(out_shape) if with_phase else None)
+
+
+def framed_spectrum_amplitude_cuda(x, n: int, hop: int, window: str = "rect",
+                                   precision: Optional[str] = None
+                                   ) -> torch.Tensor:
+    """Framed one-sided amplitude spectrogram of a real signal
+    [batch..., L] -> [batch..., F, n//2+1], F = 1 + (L - n)//hop, trailing
+    samples dropped. Equal to framing followed by
+    :func:`spectrum_amplitude_cuda`, but K4 reads the signal directly and
+    never materialises the frames. Requires
+    :func:`framed_spectrum_supported` (n, hop) (ValueError otherwise)."""
+    return _framed(x, n, hop, window, precision, with_phase=False)[0]
+
+
+def framed_spectrum_amp_phase_cuda(x, n: int, hop: int, window: str = "rect",
+                                   precision: Optional[str] = None
+                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Framed one-sided amplitude AND phase spectrogram:
+    [batch..., L] -> ([batch..., F, n//2+1], [batch..., F, n//2+1]); the
+    amp+phase analogue of :func:`framed_spectrum_amplitude_cuda`."""
+    return _framed(x, n, hop, window, precision, with_phase=True)
 
 
 # ── K2: row FFT ──────────────────────────────────────────────────────

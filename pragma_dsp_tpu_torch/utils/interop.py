@@ -2,17 +2,21 @@
 
 The system has no learned weights: its state is its inputs and the plan
 constants (windows, twiddle tables), which both packages build from the
-same numpy float64 formulas. Inputs and results cross as numpy arrays.
+same numpy float64 formulas. Inputs, results and streaming carries cross
+as numpy arrays.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..core.complex import ComplexArray, tensor_to_numpy
 from ..public.spectrum import SpectrumPeak, SpectrumResult
+from ..stream.stft import StftState
 
-__all__ = ["complex_from_numpy", "to_numpy", "result_to_numpy"]
+__all__ = ["complex_from_numpy", "to_numpy", "result_to_numpy",
+           "stft_state_to_numpy", "stft_state_from_numpy"]
 
 
 def complex_from_numpy(z, dtype=None, device=None) -> ComplexArray:
@@ -35,3 +39,18 @@ def result_to_numpy(r: SpectrumResult) -> SpectrumResult:
         amplitude=to_numpy(r.amplitude),
         phase=to_numpy(r.phase),
         peak=SpectrumPeak(*(to_numpy(f) for f in r.peak)))
+
+
+def stft_state_to_numpy(state) -> StftState:
+    """A streaming STFT carry (this package's ``StftState`` or the JAX
+    package's twin) with its tail as a numpy array."""
+    tail = state.tail
+    return StftState(tail=tensor_to_numpy(tail) if isinstance(tail, torch.Tensor)
+                     else np.asarray(tail))
+
+
+def stft_state_from_numpy(state, dtype=None, device=None) -> StftState:
+    """A carry whose tail is array-like (numpy, or the JAX twin's array) as
+    a ``StftState`` of a tensor on ``device``."""
+    return StftState(tail=torch.as_tensor(np.array(state.tail), dtype=dtype,
+                                          device=device))

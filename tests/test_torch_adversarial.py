@@ -1,0 +1,169 @@
+"""Seeded adversarial sweep of the public spectrum and spectrogram entries
+in both packages.
+
+For each entry (spectrum, spectrogram_amplitude, spectrogram, stft), input
+(zeros, a NaN, +/- constants, int, float64, a signal shorter than the
+frame) and size n in {100, 128, 256}: either both packages raise the same
+exception type, or both give the same numbers, to 1e-10 where both compute
+in float64 and to the float32 tolerances otherwise (amplitude 2e-6,
+phase 1e-4 rad where the amplitude exceeds 1e-3).
+
+One known fault of the JAX package is held apart instead of enshrined:
+its ``spectrogram_amplitude`` raises on float64 input at one-sided
+n > 128 (the Pallas kernel K1 stores float32 into a float64 output). The
+port answers those cases; they are checked against a float64 numpy
+oracle, and the JAX error is asserted so that a fix there shows up here.
+
+One deliberate difference of the port is held apart too: its float64
+``spectrogram_amplitude`` goes stft -> |X| -> scaling through
+``ops.dispatch``, which (like both packages' ``stft``) has no
+non-power-of-two size, so n = 100 raises ValueError there where the JAX
+package reaches its dense-DFT kernel K3.
+"""
+
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import pragma_dsp_tpu as jpd
+import pragma_dsp_tpu.stream as jstream
+import pragma_dsp_tpu_torch as pt
+from pragma_dsp_tpu.xform.fourier import window_values
+
+pstream = importlib.import_module("pragma_dsp_tpu_torch.stream")
+
+SR = 48000.0
+SIZES = (100, 128, 256)
+INPUTS = ("zeros", "nan", "pos_const", "neg_const", "int", "f64", "short")
+ENTRIES = ("spectrum", "spectrogram_amplitude", "spectrogram", "stft")
+F64_TOL, AMP_TOL, PHASE_TOL = 1e-10, 2e-6, 1e-4
+# (entry, input) pairs where the JAX package fails at one-sided n > 128.
+JAX_F64_FAULT = {("spectrogram_amplitude", "f64"), ("spectrogram_amplitude", "int")}
+# The port's float64 spectrogram rule: ops.dispatch, power-of-two n only.
+PORT_F64_RULE = ("spectrogram_amplitude", "f64")
+
+
+def _signal(kind: str, n: int) -> np.ndarray:
+    rng = np.random.default_rng(1000 + n)
+    length = n // 2 if kind == "short" else 3 * n
+    t = np.arange(length) / SR
+    noisy = 0.5 * np.sin(2 * np.pi * 2300.0 * t) + 0.05 * rng.standard_normal(length)
+    if kind == "zeros":
+        return np.zeros(length, np.float32)
+    if kind == "nan":
+        x = noisy.astype(np.float32)
+        x[length // 3] = np.nan
+        return x
+    if kind in ("pos_const", "neg_const"):
+        return np.full(length, 0.75 if kind == "pos_const" else -0.75, np.float32)
+    if kind == "int":
+        return rng.integers(-8, 8, size=length).astype(np.int32)
+    if kind == "f64":
+        return noisy
+    return noisy.astype(np.float32)            # short
+
+
+def _call(mod, entry: str, x, n: int):
+    hop = n // 4
+    if entry == "spectrum":
+        return mod.spectrum(x, sample_rate=SR, fft_size=n, window="hann")
+    if entry == "spectrogram_amplitude":
+        return mod.spectrogram_amplitude(x, n, hop, "hann")
+    if entry == "spectrogram":
+        return mod.spectrogram(x, n, hop, "hann", SR)
+    return mod.stft(x, n, hop, "hann")
+
+
+def _port(entry, x, n):
+    mod = pt if entry == "spectrum" else pstream
+    return _call(mod, entry, torch.from_numpy(x), n)
+
+
+def _jax(entry, x, n):
+    mod = jpd if entry == "spectrum" else jstream
+    return _call(mod, entry, jnp.asarray(x), n)
+
+
+def _np(a) -> np.ndarray:
+    return a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def _arrays(out) -> dict:
+    """The numbers of either package's result, by name, as numpy arrays."""
+    if hasattr(out, "peak"):
+        return {"amplitude": _np(out.amplitude), "phase": _np(out.phase),
+                "frequencies": _np(out.frequencies),
+                "peak_index": _np(out.peak.index),
+                "peak_amplitude": _np(out.peak.amplitude)}
+    if isinstance(out, tuple):                  # a ComplexArray of either package
+        return {"spec": _np(out.real) + 1j * _np(out.imag)}
+    return {"amplitude": _np(out)}
+
+
+def _assert_same(got: dict, ref: dict, tol: float, label: str):
+    assert got.keys() == ref.keys(), label
+    scale = max(1.0, float(np.nanmax(np.abs(ref.get("amplitude", ref.get("spec"))),
+                                     initial=0.0)))
+    for key in ("amplitude", "spec", "peak_amplitude"):
+        if key in ref:
+            assert got[key].shape == ref[key].shape, (label, key)
+            np.testing.assert_allclose(got[key], ref[key], rtol=0, atol=tol * scale,
+                                       equal_nan=True, err_msg=f"{label} {key}")
+    for key in ("frequencies", "peak_index"):
+        if key in ref:
+            np.testing.assert_array_equal(got[key], ref[key], err_msg=f"{label} {key}")
+    if "phase" in ref:
+        amp = ref["amplitude"]
+        mask = np.isfinite(amp) & (amp > (1e-3 if tol > F64_TOL else 1e-6) * scale)
+        d = np.abs(np.angle(np.exp(1j * (got["phase"][mask] - ref["phase"][mask]))))
+        assert d.size == 0 or d.max() <= (PHASE_TOL if tol > F64_TOL else 1e-8), label
+        assert np.array_equal(np.isnan(got["phase"]), np.isnan(ref["phase"])), label
+
+
+def _oracle_amplitude(x: np.ndarray, n: int) -> np.ndarray:
+    hop = n // 4
+    frames = np.lib.stride_tricks.sliding_window_view(
+        x.astype(np.float64), n)[::hop]
+    mags = np.abs(np.fft.rfft(frames * window_values("hann", n), axis=-1))
+    scale = np.full(n // 2 + 1, 2.0 / n)
+    scale[0] = scale[-1] = 1.0 / n
+    return mags * scale
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("kind", INPUTS)
+@pytest.mark.parametrize("entry", ENTRIES)
+def test_port_agrees_with_jax(entry, kind, n):
+    x = _signal(kind, n)
+    label = f"{entry}({kind}, n={n})"
+    try:
+        ref = _jax(entry, x, n)
+        jax.block_until_ready(jax.tree_util.tree_leaves(ref))
+        jax_err = None
+    except Exception as e:  # noqa: BLE001 - the type is what is compared
+        jax_err = e
+    if jax_err is not None and (entry, kind) in JAX_F64_FAULT and n > 128:
+        assert isinstance(jax_err, ValueError) and "dtype" in str(jax_err), label
+        got = _port(entry, x, n).numpy()
+        assert got.dtype == (np.float64 if kind == "f64" else np.float32), label
+        np.testing.assert_allclose(got, _oracle_amplitude(x, n), rtol=0,
+                                   atol=F64_TOL if kind == "f64" else AMP_TOL,
+                                   err_msg=label)
+        return
+    if (entry, kind) == PORT_F64_RULE and n & (n - 1):
+        assert jax_err is None, label
+        with pytest.raises(ValueError, match="power of two"):
+            _port(entry, x, n)
+        return
+    if jax_err is not None:
+        with pytest.raises(type(jax_err)):
+            _port(entry, x, n)
+        return
+    got = _port(entry, x, n)
+    both_f64 = (kind == "f64" and entry != "spectrogram_amplitude")
+    _assert_same(_arrays(got), _arrays(ref),
+                 F64_TOL if both_f64 else AMP_TOL, label)
