@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's spectrum and spectrogram paths once on one CUDA
-card and check them.
+"""Drive the PyTorch port's spectrum, spectrogram, FIR and channelizer paths
+once on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -18,7 +18,16 @@ Phases (one line each; any failed gate exits non-zero):
   8. K3 at small n against float64 numpy and its plain version;
   9. launch counts of the spectrogram path, one call at a time (the
      default route must launch K4 and nothing else);
- 10. the spectrogram routes at full width, [128, 480000], with CUDA events.
+ 10. the spectrogram routes at full width, [128, 480000], with CUDA events;
+ 11. K5a/K5b (circular convolution) against float64 numpy and their plain
+     version, K5a on one frame, donate in place;
+ 12. the FIR path at full width: a 127-tap Hamming-windowed lowpass over phase 10's
+     [128, 480000] signal (overlap-save through K2 + K5b, direct, fir_step)
+     and a 2^22 row against float64 lfilter, one-frame overlap-save (K5a),
+     launch counts one call at a time, and times;
+ 13. config 5 (bench.py's 256-channel PFB) and C = 128, 4096 against the
+     float64 oracle, frames/flat/streaming bit-equal, launch counts, and
+     K6 against its plain version on 1e8 complex samples.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -48,6 +57,25 @@ C2_CHUNK = 45 * C2_HOP   # stft_step chunks: a whole number of hops
 K3_SHAPES = ((16384, 128, "one"), (16384, 128, "two"), (16384, 100, "one"),
              (4096, 4096, "two"))
 AB_ROUNDS = 6            # phase 10's alternating K1-route / K4-route rounds
+FIR_TAPS = 127           # bench/kernels.py:223-224, :260 (config 3's tap count)
+# Phase 12's filter: a 127-tap Hamming-windowed sinc with cutoff 0.2 (the
+# firwin(127, 0.2) of tests/test_fir.py). The Hamming window itself as taps
+# (bench/kernels.py:260) passes config 2's tones at about -50 dB, so every
+# float32 route, a sequential float32 sum included, lands near 104 dB
+# against float64 there: that measures the signal, not the route.
+FIR_CUTOFF = 0.2
+K5_SHAPES = ((16384, 1024), (4096, 4096), (1024, 16384), (3, 256))
+CONV_GATE_DB = 125.0     # tests/test_conv_pallas.py:69
+PFB_PLAIN_GATE_DB = 125.0   # K6 against its plain version on the same inputs
+FIR_GATE_DB = 110.0      # tests/test_fir.py:117, the kernel route at "highest"
+FIR_ROW = 1 << 22        # bench/kernels.py:262
+FIR_SHORT = 300          # one overlap-save block
+FIR_CHUNKS = 10
+C5_CHANNELS, C5_TPB, C5_FRAMES = 256, 8, 512   # bench.py:268-287, config 5
+C5_MORE = (128, 4096)
+C5_TONE = 37             # a tone at +37/256 of the rate lands in channel 37
+C5_CHUNK_FRAMES = 64     # streaming chunks of the config-5 stream
+C5_WIDE = 10 ** 8        # 1 s of 100 Msps IQ
 
 
 def say(*parts) -> None:
@@ -111,6 +139,24 @@ def twosided_oracle(x: np.ndarray, window: np.ndarray, sides: str) -> np.ndarray
     return ref
 
 
+def pfb_oracle(z: np.ndarray, taps: np.ndarray, c: int) -> np.ndarray:
+    """bench.py's config-5 oracle (bench.py:272-283): the branch filter and
+    the cross-branch DFT in float64."""
+    tpb = -(-taps.shape[0] // c)
+    m = z.shape[-1] // c
+    hp = np.zeros((tpb, c))
+    hp.ravel()[:taps.shape[0]] = taps
+    xb = np.concatenate([np.zeros((tpb - 1) * c, complex), z]).reshape(tpb - 1 + m, c)
+    v = np.zeros((m, c), complex)
+    for t in range(tpb):
+        v += hp[t] * xb[tpb - 1 - t: tpb - 1 - t + m]
+    return np.fft.fft(v, axis=-1)
+
+
+def csnr_db(ref: np.ndarray, re, im) -> float:
+    return snr_db(np.stack([ref.real, ref.imag]), np.stack([re, im]))
+
+
 def main() -> int:
     import torch
 
@@ -121,7 +167,15 @@ def main() -> int:
     from pragma_dsp_tpu_torch import spectrum
     from pragma_dsp_tpu_torch.core import ComplexArray
     from pragma_dsp_tpu_torch.entry import entry
-    from pragma_dsp_tpu_torch.ops import _build, dispatch, fft_cuda
+    from pragma_dsp_tpu_torch.ops import (_build, conv_cuda, dispatch, fft_cuda,
+                                          fir_filter, fir_step, fir_stream_init,
+                                          overlap_save_filter, pfb_channelize,
+                                          pfb_channelize_frames,
+                                          pfb_channelize_frames_step,
+                                          pfb_channelize_step, pfb_cuda,
+                                          pfb_frames_stream_init, pfb_stream_init,
+                                          pfb_taps)
+    from pragma_dsp_tpu_torch.ops.polyphase import design_lowpass
     from pragma_dsp_tpu_torch.stream import (frame_signal, istft, spectrogram,
                                              spectrogram_amplitude, stft,
                                              stft_step, stft_stream_init)
@@ -394,6 +448,16 @@ def main() -> int:
         torch.cuda.synchronize()
         return dict(fft_cuda.LAUNCHES)
 
+    def dev_snr_db(refs, gots) -> float:
+        """snr_db over planes that stay on the card, in float64: for inputs
+        too large to copy back."""
+        power = err = 0.0
+        for ref, got in zip(refs, gots):
+            ref, got = ref.double(), got.double()
+            power += float((ref * ref).sum())
+            err += float(((got - ref) ** 2).sum())
+        return float("inf") if err == 0.0 else 10 * np.log10(power / err)
+
     path_launches = {}
     for label, fn, kname in (
             ("spectrogram_amplitude() as bench.py calls it",
@@ -490,6 +554,255 @@ def main() -> int:
         f"({batch * n / k3_small[1] / 1e3:.0f} Msamples/s)")
     say(f"[10] max|kernel-plain| at full width: K4 amp {k4_err:.3e}, K3 {k3_err:.3e}")
 
+    # 11. K5a/K5b against float64 numpy and their plain version
+    h127 = (np.hamming(FIR_TAPS) / np.hamming(FIR_TAPS).sum()).astype(np.float32)
+    k5 = {}
+    for batch, n in K5_SHAPES:
+        rng = np.random.default_rng(SEED + n)
+        x = rng.standard_normal((batch, n)).astype(np.float32)
+        h = np.zeros(n, np.float32)
+        h[:FIR_TAPS] = h127
+        xd = cuda(x)
+        hs = dispatch.fft(cuda(h))
+        y = conv_cuda.circular_convolve_cuda(xd, hs, n)
+        plain = conv_cuda.circular_convolve_plain(xd, hs, n)
+        torch.cuda.synchronize()
+        ref = np.real(np.fft.ifft(np.fft.fft(x.astype(np.float64), axis=-1)
+                                  * np.fft.fft(h.astype(np.float64)), axis=-1))
+        got, pl = host(y), host(plain)
+        gate(got.shape == ref.shape and np.isfinite(got).all(),
+             f"K5 [{batch}, {n}]: shape or non-finite")
+        s_ref, s_plain = snr_db(ref, got), snr_db(pl, got)
+        say(f"[11] K5 ({'K5b pairs' if batch > 1 else 'K5a'}) [{batch}, {n}]: SNR vs f64 "
+            f"{s_ref:.1f} dB, vs plain {s_plain:.1f} dB (gate >= {CONV_GATE_DB}), "
+            f"max|kernel-plain| {float(np.abs(got - pl).max()):.3e}")
+        gate(s_ref >= CONV_GATE_DB, f"K5 [{batch}, {n}]: SNR vs f64 {s_ref:.1f} dB")
+        gate(s_plain >= CONV_GATE_DB, f"K5 [{batch}, {n}]: SNR vs plain {s_plain:.1f} dB")
+        ms = timed(lambda: conv_cuda.circular_convolve_cuda(xd, hs, n))
+        pms = timed(lambda: conv_cuda.circular_convolve_plain(xd, hs, n), runs=3, inner=1)
+        say(f"[11] K5 [{batch}, {n}] on {name} ({card}): kernel {ms:.4f} ms "
+            f"({batch * n / ms / 1e3:.0f} Msamples/s), plain {pms:.4f} ms")
+        k5[(batch, n)] = dict(x=xd, hs=hs, y=y, ref=ref)
+    xd, hs, y_main = (k5[K5_SHAPES[0]][key] for key in ("x", "hs", "y"))
+    n = K5_SHAPES[0][1]
+    before = dict(fft_cuda.LAUNCHES)
+    one = host(conv_cuda.circular_convolve_cuda(xd[:1], hs, n))
+    gate(fft_cuda.LAUNCHES["osconv"] == before["osconv"] + 1
+         and fft_cuda.LAUNCHES["osconv_pair"] == before["osconv_pair"],
+         "one frame did not launch K5a")
+    s_one = snr_db(k5[K5_SHAPES[0]]["ref"][:1], one)
+    gate(s_one >= CONV_GATE_DB, f"K5a [1, {n}]: SNR vs f64 {s_one:.1f} dB")
+    donated = xd.clone()
+    out = conv_cuda.circular_convolve_cuda(donated, hs, n, donate=True)
+    gate(out.data_ptr() == donated.data_ptr() and torch.equal(out, y_main),
+         "K5 donate=True did not write in place or differs")
+    del donated, out, k5
+    say(f"[11] K5a [1, {n}]: SNR vs f64 {s_one:.1f} dB; donate=True in place and equal")
+
+    # 12. the FIR path at full width: phase 10's [128, 480000] signal
+    from scipy.signal import lfilter
+
+    taps = design_lowpass(FIR_TAPS, FIR_CUTOFF).astype(np.float32)
+    taps31 = design_lowpass(31, FIR_CUTOFF).astype(np.float32)
+    t0 = time.perf_counter()
+    ref_w = lfilter(taps.astype(np.float64), 1.0, host(xw).astype(np.float64), axis=-1)
+    say(f"[12] float64 lfilter oracle of [{C2_CHANNELS}, {C2_LEN}] in "
+        f"{time.perf_counter() - t0:.1f} s")
+    fir = {"overlap-save (auto: K2 + K5b)": fir_filter(xw, taps),
+           "direct (conv1d, TF32 off)": fir_filter(xw, taps, "direct")}
+    chunk = C2_LEN // FIR_CHUNKS
+    st = fir_stream_init(taps, (C2_CHANNELS,), device=dev)
+    outs = []
+    for i in range(FIR_CHUNKS):
+        st, y = fir_step(st, xw[:, i * chunk:(i + 1) * chunk], taps)
+        outs.append(y)
+    fir[f"fir_step x{FIR_CHUNKS}"] = torch.cat(outs, dim=-1)
+    del outs, st
+    for label, y in fir.items():
+        got = host(y)
+        gate(got.shape == ref_w.shape and np.isfinite(got).all(),
+             f"FIR {label}: shape {got.shape} or non-finite")
+        fir[label] = snr_db(ref_w, got)
+        gate(fir[label] >= FIR_GATE_DB, f"FIR {label}: SNR {fir[label]:.1f} dB")
+    del ref_w
+    rng = np.random.default_rng(SEED)
+    for label, length, method in (("2^22 row", FIR_ROW, "auto"),
+                                  (f"{FIR_SHORT} samples (one block)", FIR_SHORT,
+                                   "overlap_save")):
+        x = rng.standard_normal(length).astype(np.float32)
+        got = host(fir_filter(cuda(x), taps, method))
+        ref = lfilter(taps.astype(np.float64), 1.0, x.astype(np.float64))
+        gate(got.shape == ref.shape and np.isfinite(got).all(), f"FIR {label}: shape")
+        fir[label] = snr_db(ref, got)
+        gate(fir[label] >= FIR_GATE_DB, f"FIR {label}: SNR {fir[label]:.1f} dB")
+    say(f"[12] FIR {FIR_TAPS}-tap lowpass (cutoff {FIR_CUTOFF}), [{C2_CHANNELS}, {C2_LEN}] unless named, SNR "
+        f"vs f64 lfilter (gate >= {FIR_GATE_DB}): "
+        + ", ".join(f"{k} {v:.1f} dB" for k, v in fir.items()))
+    x_short = cuda(rng.standard_normal(FIR_SHORT).astype(np.float32))
+    for label, fn, want, kname in (
+            (f"fir_filter [{C2_CHANNELS}, {C2_LEN}] (overlap-save, many blocks)",
+             lambda: fir_filter(xw, taps), {"fft_rows": 1, "osconv_pair": 1},
+             "osconv_pair"),
+            (f"fir_filter [{FIR_SHORT}] overlap-save (one block)",
+             lambda: fir_filter(x_short, taps, "overlap_save"),
+             {"fft_rows": 1, "osconv": 1}, "osconv"),
+            (f"fir_filter [{C2_CHANNELS}, {C2_LEN}] direct",
+             lambda: fir_filter(xw, taps, "direct"), {}, None)):
+        got = counted(fn)
+        want = {key: want.get(key, 0) for key in fft_cuda.LAUNCHES}
+        say(f"[12] launches during {label}: {got}")
+        gate(got == want, f"{label} launched {got}, expected {want}")
+        if kname is not None:
+            path_launches[kname] = got[kname]
+    # The blocks the path hands K5b, and the one block it hands K5a.
+    n_fir = 1024
+    hop = n_fir - (FIR_TAPS - 1)
+    nb = -(-C2_LEN // hop)
+    fr = torch.nn.functional.pad(xw, (FIR_TAPS - 1, nb * hop - C2_LEN)).unfold(
+        -1, n_fir, hop).reshape(-1, n_fir).contiguous()
+    h_fir = torch.zeros(n_fir, device=dev)
+    h_fir[:FIR_TAPS] = cuda(taps)
+    hs_fir = dispatch.fft(h_fir)
+    k5_err, k5_snr = {}, {}
+    for kname, blocks in (("osconv_pair", fr), ("osconv", fr[:1])):
+        got = conv_cuda.circular_convolve_cuda(blocks, hs_fir, n_fir)
+        plain = conv_cuda.circular_convolve_plain(blocks, hs_fir, n_fir)
+        k5_err[kname] = float((got - plain).abs().max())
+        k5_snr[kname] = dev_snr_db((plain,), (got,))
+        gate(k5_snr[kname] >= CONV_GATE_DB,
+             f"{kname} on the FIR path's [{blocks.shape[0]}, {n_fir}] blocks: SNR vs "
+             f"plain {k5_snr[kname]:.1f} dB")
+    del got, plain
+
+    def plain_fir():
+        dispatch.set_fft_impl("stockham")
+        try:
+            return overlap_save_filter(xw, taps)
+        finally:
+            dispatch.set_fft_impl("auto")
+
+    # (label, call, plain version: fewer runs, output samples per call)
+    fir_runs = (
+        ("overlap-save route (K2 + K5b)", lambda: fir_filter(xw, taps), False, samples),
+        ("overlap-save plain route (Stockham)", plain_fir, True, samples),
+        ("direct k=127 (conv1d)", lambda: fir_filter(xw, taps, "direct"), False, samples),
+        ("direct k=31 (conv1d)", lambda: fir_filter(xw, taps31, "direct"), False, samples),
+        (f"K5b alone on the path's [{fr.shape[0]}, {n_fir}] blocks",
+         lambda: conv_cuda.circular_convolve_cuda(fr, hs_fir, n_fir), False, fr.numel()),
+        (f"K5 plain on the path's [{fr.shape[0]}, {n_fir}] blocks",
+         lambda: conv_cuda.circular_convolve_plain(fr, hs_fir, n_fir), True, fr.numel()),
+        (f"K5a alone on one [1, {n_fir}] block",
+         lambda: conv_cuda.circular_convolve_cuda(fr[:1], hs_fir, n_fir), False, n_fir),
+        (f"K5 plain on one [1, {n_fir}] block",
+         lambda: conv_cuda.circular_convolve_plain(fr[:1], hs_fir, n_fir), False, n_fir))
+    fir_ms = {}
+    base = torch.cuda.memory_allocated()
+    for label, fn, slow, count in fir_runs:
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e6
+        fir_ms[label] = timed(fn, runs=3, inner=1) if slow else timed(fn)
+        say(f"[12] {label} on {name} ({card}): {fir_ms[label]:.4f} ms, "
+            f"{count / fir_ms[label] / 1e3:.0f} Msamples/s, peak {peak:.1f} MB above "
+            f"the inputs")
+    say(f"[12] kernel vs plain on the path's blocks (gate >= {CONV_GATE_DB}): K5b SNR "
+        f"{k5_snr['osconv_pair']:.1f} dB, max|kernel-plain| {k5_err['osconv_pair']:.3e}; "
+        f"K5a SNR {k5_snr['osconv']:.1f} dB, max|kernel-plain| {k5_err['osconv']:.3e}")
+    del fr
+
+    # 13. config 5: the channelizer against bench.py's float64 oracle
+    c = C5_CHANNELS
+    c5 = {}
+    rng = np.random.default_rng(SEED)
+    for ch in (c,) + C5_MORE:
+        z = (rng.standard_normal(ch * C5_FRAMES)
+             + 1j * rng.standard_normal(ch * C5_FRAMES))
+        xr, xi = cuda(z.real.astype(np.float32)), cuda(z.imag.astype(np.float32))
+        y = pfb_channelize(ComplexArray(xr, xi), ch)
+        got_re, got_im = host(y.real), host(y.imag)
+        gate(got_re.shape == (C5_FRAMES, ch) and np.isfinite(got_re).all()
+             and np.isfinite(got_im).all(), f"config 5 C={ch}: shape or non-finite")
+        c5[ch] = csnr_db(pfb_oracle(z, pfb_taps(ch, C5_TPB), ch), got_re, got_im)
+        gate(c5[ch] >= GATE_DB, f"config 5 C={ch}: SNR {c5[ch]:.1f} dB")
+        if ch == c:
+            x5, y5 = ComplexArray(xr, xi), y
+    frames5 = ComplexArray(x5.real.reshape(-1, c), x5.imag.reshape(-1, c))
+    hp = pfb_cuda.pfb_tap_table(pfb_taps(c, C5_TPB), c)[0].float().to(dev)
+    pfb_snr = {f"[{C5_FRAMES}, {c}]": dev_snr_db(
+        pfb_cuda.pfb_channelize_plain(frames5.real, frames5.imag, hp), (y5.real, y5.imag))}
+    yf = pfb_channelize_frames(frames5, c)
+    gate(torch.equal(yf.real, y5.real) and torch.equal(yf.imag, y5.imag),
+         "config 5: pfb_channelize_frames differs from pfb_channelize")
+    step = C5_CHUNK_FRAMES * c
+    st, sf = pfb_stream_init(c, device=dev), pfb_frames_stream_init(c, device=dev)
+    flat_outs, frame_outs = [], []
+    for i in range(C5_FRAMES // C5_CHUNK_FRAMES):
+        st, o = pfb_channelize_step(st, ComplexArray(x5.real[i * step:(i + 1) * step],
+                                                     x5.imag[i * step:(i + 1) * step]), c)
+        flat_outs.append(o)
+        rows = slice(i * C5_CHUNK_FRAMES, (i + 1) * C5_CHUNK_FRAMES)
+        sf, o = pfb_channelize_frames_step(sf, ComplexArray(frames5.real[rows],
+                                                            frames5.imag[rows]), c)
+        frame_outs.append(o)
+    for label, outs in (("pfb_channelize_step", flat_outs),
+                        ("pfb_channelize_frames_step", frame_outs)):
+        gate(torch.equal(torch.cat([o.real for o in outs]), y5.real)
+             and torch.equal(torch.cat([o.imag for o in outs]), y5.imag),
+             f"config 5: {label} over chunks differs from the batch result")
+    tone = np.exp(2j * np.pi * (C5_TONE / c) * np.arange(c * C5_CHUNK_FRAMES))
+    yt = pfb_channelize(ComplexArray(cuda(tone.real.astype(np.float32)),
+                                     cuda(tone.imag.astype(np.float32))), c)
+    power = (host(yt.real) ** 2 + host(yt.imag) ** 2)[C5_TPB:].mean(axis=0)
+    gate(int(np.argmax(power)) == C5_TONE,
+         f"config 5: a tone at +{C5_TONE}/{c} peaked in channel {int(np.argmax(power))}")
+    say(f"[13] config 5 ({c} channels, {C5_TPB} taps/branch, {C5_FRAMES} frames) SNR vs "
+        f"f64 (gate >= {GATE_DB}): " + ", ".join(f"C={k} {v:.1f} dB" for k, v in c5.items())
+        + f"; frames == flat, both steps over {C5_FRAMES // C5_CHUNK_FRAMES} chunks == "
+        f"batch; tone +{C5_TONE}/{c} in channel {C5_TONE}")
+    x64 = ComplexArray(x5.real[:64 * C5_FRAMES], x5.imag[:64 * C5_FRAMES])
+    for label, fn, want in (
+            (f"pfb_channelize C={c}", lambda: pfb_channelize(x5, c), {"pfb": 1}),
+            ("pfb_channelize_frames C=256", lambda: pfb_channelize_frames(frames5, c),
+             {"pfb": 1}),
+            ("pfb_channelize C=64", lambda: pfb_channelize(x64, 64), {"fft_rows": 1})):
+        got = counted(fn)
+        want = {key: want.get(key, 0) for key in fft_cuda.LAUNCHES}
+        say(f"[13] launches during {label}: {got}")
+        gate(got == want, f"{label} launched {got}, expected {want}")
+        path_launches.setdefault("pfb", got["pfb"])
+    # Full width: 1 s of 100 Msps IQ through 256 channels.
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    xwide = ComplexArray(torch.randn(C5_WIDE, generator=gen, device=dev),
+                         torch.randn(C5_WIDE, generator=gen, device=dev))
+    fwide = (xwide.real.reshape(-1, c), xwide.imag.reshape(-1, c))
+    pfb_runs = {"K6 (pfb_channelize)": (lambda: pfb_channelize(xwide, c), False),
+                "plain (branch filter + Stockham)":
+                    (lambda: pfb_cuda.pfb_channelize_plain(*fwide, hp), True)}
+    pfb_ms = {}
+    base = torch.cuda.memory_allocated()
+    for label, (fn, slow) in pfb_runs.items():
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e6
+        pfb_ms[label] = timed(fn, runs=3, inner=1) if slow else timed(fn)
+        say(f"[13] {label} [{C5_WIDE}] complex, C={c} on {name} ({card}): "
+            f"{pfb_ms[label]:.4f} ms, {C5_WIDE / pfb_ms[label] / 1e3:.0f} Msamples/s, "
+            f"peak {peak:.1f} MB above the inputs")
+    kw, pw = pfb_runs["K6 (pfb_channelize)"][0](), pfb_runs[
+        "plain (branch filter + Stockham)"][0]()
+    pfb_err = float(torch.maximum((kw.real - pw[0]).abs().max(),
+                                  (kw.imag - pw[1]).abs().max()))
+    pfb_snr[f"[{C5_WIDE}] complex"] = dev_snr_db(pw, (kw.real, kw.imag))
+    for shape, s in pfb_snr.items():
+        gate(s >= PFB_PLAIN_GATE_DB, f"K6 {shape}: SNR vs plain {s:.1f} dB")
+    say(f"[13] K6 vs plain (gate >= {PFB_PLAIN_GATE_DB}): "
+        + ", ".join(f"{k} {v:.1f} dB" for k, v in pfb_snr.items())
+        + f"; max|K6-plain| at full width {pfb_err:.3e} (|y| up to "
+        f"{float(kw.real.abs().max()):.1f})")
+    del kw, pw, xwide, fwide
+
     kernels = []
     for kname, src, replaces, err, (ms, pms), count in (
             ("spectrum_onesided", "spectrum_onesided.cu",
@@ -504,7 +817,19 @@ def main() -> int:
             ("stft_onesided", "stft_onesided.cu",
              "pragma_dsp_tpu/ops/fft_pallas.py:1173", k4_err,
              (wide_ms["K4 route amp"], wide_ms["plain amp (K1/K4)"]),
-             path_launches["stft_onesided"])):
+             path_launches["stft_onesided"]),
+            ("osconv", "osconv.cu", "pragma_dsp_tpu/ops/conv_pallas.py:77",
+             k5_err["osconv"], (fir_ms[f"K5a alone on one [1, {n_fir}] block"],
+                                fir_ms[f"K5 plain on one [1, {n_fir}] block"]),
+             path_launches["osconv"]),
+            ("osconv_pair", "osconv.cu", "pragma_dsp_tpu/ops/conv_pallas.py:94",
+             k5_err["osconv_pair"],
+             (fir_ms[f"K5b alone on the path's [{nb * C2_CHANNELS}, {n_fir}] blocks"],
+              fir_ms[f"K5 plain on the path's [{nb * C2_CHANNELS}, {n_fir}] blocks"]),
+             path_launches["osconv_pair"]),
+            ("pfb", "pfb.cu", "pragma_dsp_tpu/ops/pfb_pallas.py:73", pfb_err,
+             (pfb_ms["K6 (pfb_channelize)"], pfb_ms["plain (branch filter + Stockham)"]),
+             path_launches["pfb"])):
         gate(count > 0, f"{kname} was not launched on its path")
         kernels.append({"name": kname, "route": "cuda",
                         "source": f"pragma_dsp_tpu_torch/csrc/{src}",

@@ -39,6 +39,10 @@ _SIGNATURES = {
     "spectrum_twosided_f32": [_P, _P, _P, _P, _P, _I, _I, _P],
     # x, win, amp, ph (nullable), twc, tws, batch, length, n, hop, stream
     "stft_onesided_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # in, out, hre, him, twc, tws, batch, n, pair, stream
+    "osconv_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # xre, xim, ore, oim, hp, twc, tws, frames, m_frames, c, t_taps, stream
+    "pfb_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -19,7 +19,8 @@ Counterpart of the K1-K4 part of ``pragma_dsp_tpu/ops/fft_pallas.py``:
 Each wrapper takes its plain version only because the tensor it was given
 lies on the CPU. For a CUDA tensor it launches its kernel or raises; there
 is no fallback. ``LAUNCHES`` counts kernel launches, one per launch and
-nowhere else.
+nowhere else; it also holds the counts of K5a/K5b (``ops/conv_cuda.py``)
+and K6 (``ops/pfb_cuda.py``).
 
 Precision: "auto" and None (with the global policy at "auto") resolve to
 "highest". "bf16x3" is accepted for API parity with the JAX package but
@@ -70,7 +71,7 @@ MAX_DFT_N = 128
 FRAMED_HOP_QUANTUM = 128
 
 LAUNCHES = {"spectrum_onesided": 0, "fft_rows": 0, "spectrum_twosided": 0,
-            "stft_onesided": 0}
+            "stft_onesided": 0, "osconv": 0, "osconv_pair": 0, "pfb": 0}
 
 _PRECISIONS = ("highest", "bf16x3")
 

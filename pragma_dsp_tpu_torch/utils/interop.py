@@ -8,15 +8,22 @@ as numpy arrays.
 
 from __future__ import annotations
 
+from functools import partial
+
 import numpy as np
 import torch
 
 from ..core.complex import ComplexArray, tensor_to_numpy
+from ..ops.channelizer import PfbFramesState, PfbState
+from ..ops.fir import FirState
 from ..public.spectrum import SpectrumPeak, SpectrumResult
 from ..stream.stft import StftState
 
 __all__ = ["complex_from_numpy", "to_numpy", "result_to_numpy",
-           "stft_state_to_numpy", "stft_state_from_numpy"]
+           "state_to_numpy", "state_from_numpy", "stft_state_to_numpy", "stft_state_from_numpy",
+           "fir_state_to_numpy", "fir_state_from_numpy",
+           "pfb_state_to_numpy", "pfb_state_from_numpy",
+           "pfb_frames_state_to_numpy", "pfb_frames_state_from_numpy"]
 
 
 def complex_from_numpy(z, dtype=None, device=None) -> ComplexArray:
@@ -41,16 +48,33 @@ def result_to_numpy(r: SpectrumResult) -> SpectrumResult:
         peak=SpectrumPeak(*(to_numpy(f) for f in r.peak)))
 
 
-def stft_state_to_numpy(state) -> StftState:
-    """A streaming STFT carry (this package's ``StftState`` or the JAX
-    package's twin) with its tail as a numpy array."""
-    tail = state.tail
-    return StftState(tail=tensor_to_numpy(tail) if isinstance(tail, torch.Tensor)
-                     else np.asarray(tail))
+def _leaf_to_numpy(a) -> np.ndarray:
+    return tensor_to_numpy(a) if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
-def stft_state_from_numpy(state, dtype=None, device=None) -> StftState:
-    """A carry whose tail is array-like (numpy, or the JAX twin's array) as
-    a ``StftState`` of a tensor on ``device``."""
-    return StftState(tail=torch.as_tensor(np.array(state.tail), dtype=dtype,
-                                          device=device))
+def _leaf_from_numpy(a, dtype, device) -> torch.Tensor:
+    return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+
+def state_to_numpy(cls, state):
+    """A streaming carry (this package's ``cls`` or the JAX package's twin)
+    as a ``cls`` of numpy arrays."""
+    return cls(*map(_leaf_to_numpy, state))
+
+
+def state_from_numpy(cls, state, dtype=None, device=None):
+    """A carry of array-likes (numpy, or the JAX twin's arrays) as a ``cls``
+    of tensors on ``device``."""
+    return cls(*(_leaf_from_numpy(a, dtype, device) for a in state))
+
+
+# The named converters of each streaming carry: StftState (tail), FirState
+# (tail), PfbState (flat tail planes), PfbFramesState ([..., T-1, C] planes).
+stft_state_to_numpy = partial(state_to_numpy, StftState)
+stft_state_from_numpy = partial(state_from_numpy, StftState)
+fir_state_to_numpy = partial(state_to_numpy, FirState)
+fir_state_from_numpy = partial(state_from_numpy, FirState)
+pfb_state_to_numpy = partial(state_to_numpy, PfbState)
+pfb_state_from_numpy = partial(state_from_numpy, PfbState)
+pfb_frames_state_to_numpy = partial(state_to_numpy, PfbFramesState)
+pfb_frames_state_from_numpy = partial(state_from_numpy, PfbFramesState)

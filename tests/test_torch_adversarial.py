@@ -1,5 +1,5 @@
-"""Seeded adversarial sweep of the public spectrum and spectrogram entries
-in both packages.
+"""Seeded adversarial sweep of the public spectrum, spectrogram, FIR and
+channelizer entries in both packages.
 
 For each entry (spectrum, spectrogram_amplitude, spectrogram, stft), input
 (zeros, a NaN, +/- constants, int, float64, a signal shorter than the
@@ -7,6 +7,10 @@ frame) and size n in {100, 128, 256}: either both packages raise the same
 exception type, or both give the same numbers, to 1e-10 where both compute
 in float64 and to the float32 tolerances otherwise (amplitude 2e-6,
 phase 1e-4 rad where the amplitude exceeds 1e-3).
+
+The DSP entries (fir_filter with 65 taps, overlap-save or direct by the
+auto rule; pfb_channelize at 16 channels) run over the same inputs: both
+raise the same exception type or give the same numbers.
 
 One known fault of the JAX package is held apart instead of enshrined:
 its ``spectrogram_amplitude`` raises on float64 input at one-sided
@@ -35,6 +39,8 @@ import pragma_dsp_tpu_torch as pt
 from pragma_dsp_tpu.xform.fourier import window_values
 
 pstream = importlib.import_module("pragma_dsp_tpu_torch.stream")
+jops = importlib.import_module("pragma_dsp_tpu.ops")
+pops = importlib.import_module("pragma_dsp_tpu_torch.ops")
 
 SR = 48000.0
 SIZES = (100, 128, 256)
@@ -167,3 +173,32 @@ def test_port_agrees_with_jax(entry, kind, n):
     both_f64 = (kind == "f64" and entry != "spectrogram_amplitude")
     _assert_same(_arrays(got), _arrays(ref),
                  F64_TOL if both_f64 else AMP_TOL, label)
+
+
+DSP_ENTRIES = ("fir_filter", "pfb_channelize")
+DSP_N = 256            # signals of 3*256 samples ("short": 128)
+FIR_TAPS = np.hamming(65) / np.hamming(65).sum()
+PFB_CHANNELS = 16
+
+
+def _dsp_call(mod, entry: str, x):
+    if entry == "fir_filter":
+        return mod.fir_filter(x, FIR_TAPS)
+    return mod.pfb_channelize(x, PFB_CHANNELS)
+
+
+@pytest.mark.parametrize("kind", INPUTS)
+@pytest.mark.parametrize("entry", DSP_ENTRIES)
+def test_dsp_entries_agree_with_jax(entry, kind):
+    x = _signal(kind, DSP_N)
+    label = f"{entry}({kind})"
+    try:
+        ref = _dsp_call(jops, entry, jnp.asarray(x))
+        jax.block_until_ready(jax.tree_util.tree_leaves(ref))
+    except Exception as e:  # noqa: BLE001 - the type is what is compared
+        with pytest.raises(type(e)):
+            _dsp_call(pops, entry, torch.from_numpy(x))
+        return
+    got = _dsp_call(pops, entry, torch.from_numpy(x))
+    _assert_same(_arrays(got), _arrays(ref), F64_TOL if kind == "f64" else AMP_TOL,
+                 label)

@@ -1,6 +1,8 @@
-"""K1-K4 on a CUDA card, against float64 numpy and their plain versions,
+"""K1-K6 on a CUDA card, against float64 numpy and their plain versions,
 under the bench.py gates (>=105 dB; >=120 dB at n <= 128), and K4
-bit-equal to K1 on the same frames.
+bit-equal to K1 on the same frames; K5a/K5b (circular convolution) at
+>=125 dB and K6 (the channelizer) at >=105 dB, with their routes' launch
+counts.
 
 These tests skip without a card. The file imports neither JAX nor the
 JAX package, so it also runs where JAX is not installed:
@@ -14,7 +16,11 @@ import torch
 
 from pragma_dsp_tpu_torch import spectrum
 from pragma_dsp_tpu_torch.core import ComplexArray
-from pragma_dsp_tpu_torch.ops import dispatch, fft_cuda
+from pragma_dsp_tpu_torch.ops import (circular_convolve_cuda, dispatch, fft_cuda,
+                                      fir_filter, pfb_channelize,
+                                      pfb_channelize_frames, pfb_taps)
+from pragma_dsp_tpu_torch.ops.conv_cuda import circular_convolve_plain
+from pragma_dsp_tpu_torch.ops.pfb_cuda import pfb_channelize_plain, pfb_tap_table
 from pragma_dsp_tpu_torch.stream import frame_signal, spectrogram_amplitude
 from pragma_dsp_tpu_torch.xform import window_values
 
@@ -148,3 +154,79 @@ def test_k4_on_cuda(dev, n, hop):
     mask = pamp.cpu().numpy() > 1e-3
     d = np.angle(np.exp(1j * (ph.cpu().numpy()[mask] - pph.cpu().numpy()[mask])))
     assert np.abs(d).max() <= 1e-4
+
+
+@pytest.mark.parametrize("batch,n", [(1, 256), (3, 256), (64, 1024), (8, 16384)])
+def test_k5_on_cuda(dev, batch, n):
+    rng = np.random.default_rng(batch + n)
+    x = rng.standard_normal((batch, n)).astype(np.float32)
+    h = np.zeros(n, np.float32)
+    h[:127] = np.hamming(127) / np.hamming(127).sum()
+    xd = torch.from_numpy(x).to(dev)
+    hs = dispatch.fft(torch.from_numpy(h).to(dev))
+    key = "osconv" if batch == 1 else "osconv_pair"
+    before = fft_cuda.LAUNCHES[key]
+    y = circular_convolve_cuda(xd, hs, n)
+    assert fft_cuda.LAUNCHES[key] == before + 1
+    ref = np.real(np.fft.ifft(np.fft.fft(x.astype(np.float64)) * np.fft.fft(h)))
+    got = y.cpu().numpy()
+    assert _snr(ref, got) >= 125.0
+    assert _snr(circular_convolve_plain(xd, hs, n).cpu().numpy(), got) >= 125.0
+    donated = xd.clone()
+    out = circular_convolve_cuda(donated, hs, n, donate=True)
+    assert out.data_ptr() == donated.data_ptr() and torch.equal(out, y)
+
+
+def test_fir_routes_on_cuda(dev):
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((4, 20000)).astype(np.float32)
+    taps = np.hamming(127) / np.hamming(127).sum()
+    xd = torch.from_numpy(x).to(dev)
+    ref = np.stack([np.convolve(r.astype(np.float64), taps)[:r.size] for r in x])
+    for method, want in (("overlap_save", {"fft_rows": 1, "osconv_pair": 1}),
+                         ("direct", {})):
+        for key in fft_cuda.LAUNCHES:
+            fft_cuda.LAUNCHES[key] = 0
+        got = fir_filter(xd, taps, method).cpu().numpy()
+        assert {k: v for k, v in fft_cuda.LAUNCHES.items() if v} == want
+        assert _snr(ref, got) >= 110.0, method
+    one = fir_filter(xd[0, :300], taps, "overlap_save").cpu().numpy()
+    assert _snr(ref[0, :300], one) >= 110.0
+    # bfloat16 rides the same kernels, cast to float32 around them. The
+    # input, H and the output are each rounded to 8 mantissa bits (about
+    # 48 dB apiece; the CPU's all-bfloat16 route reads 39 dB here).
+    before = fft_cuda.LAUNCHES["osconv_pair"]
+    bf = fir_filter(xd.bfloat16(), taps)
+    assert bf.dtype == torch.bfloat16 and fft_cuda.LAUNCHES["osconv_pair"] == before + 1
+    assert _snr(ref, bf.float().cpu().numpy()) >= 35.0
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fir_filter(xd, np.ones(4000) / 4000, "overlap_save")
+
+
+@pytest.mark.parametrize("c,batch", [(128, 1), (256, 3), (4096, 2)])
+def test_k6_on_cuda(dev, c, batch):
+    rng = np.random.default_rng(c + batch)
+    m = 24
+    z = rng.standard_normal((batch, m * c)) + 1j * rng.standard_normal((batch, m * c))
+    taps = pfb_taps(c, 8)
+    xr = torch.from_numpy(z.real.astype(np.float32)).to(dev)
+    xi = torch.from_numpy(z.imag.astype(np.float32)).to(dev)
+    before = fft_cuda.LAUNCHES["pfb"]
+    y = pfb_channelize(ComplexArray(xr, xi), c, taps)
+    assert fft_cuda.LAUNCHES["pfb"] == before + 1
+    hp = np.zeros(8 * c)
+    hp[:taps.size] = taps
+    zp = np.concatenate([np.zeros((batch, 7 * c)), z], axis=-1).reshape(batch, m + 7, c)
+    v = sum(hp.reshape(8, c)[t] * zp[:, 7 - t: 7 - t + m] for t in range(8))
+    ref = np.fft.fft(v, axis=-1)
+    got = y.to_numpy_complex()
+    assert got.shape == (batch, m, c)
+    assert _snr(np.stack([ref.real, ref.imag]), np.stack([got.real, got.imag])) >= 105.0
+    hpt, _ = pfb_tap_table(taps, c)
+    pre, pim = pfb_channelize_plain(xr.reshape(batch, m, c), xi.reshape(batch, m, c),
+                                    hpt.float())
+    plain = np.stack([pre.cpu().numpy(), pim.cpu().numpy()])
+    assert _snr(plain, np.stack([got.real, got.imag])) >= 105.0
+    frames = pfb_channelize_frames(ComplexArray(xr.reshape(batch, m, c),
+                                                xi.reshape(batch, m, c)), c, taps)
+    assert torch.equal(frames.real, y.real) and torch.equal(frames.imag, y.imag)

@@ -15,7 +15,9 @@ import torch
 
 from pragma_dsp_tpu.core import ComplexArray as JComplexArray
 from pragma_dsp_tpu.utils.fixtures import snr_db
-from pragma_dsp_tpu_torch.ops import _build, dispatch, fft_cuda
+from pragma_dsp_tpu_torch.core import ComplexArray
+from pragma_dsp_tpu_torch.ops import (_build, conv_cuda, dispatch, fft_cuda, fir_filter,
+                                      pfb_cuda)
 
 # The packages export functions that shadow these submodule names.
 jfft = importlib.import_module("pragma_dsp_tpu.core.fft")
@@ -287,9 +289,15 @@ def test_launch_counters_stay_zero_on_cpu():
     dispatch.fft(torch.zeros(2, 64), impl="cuda")
     fft_cuda.spectrum_amplitude_cuda(torch.zeros(2, 100), 100, sides="two")
     fft_cuda.framed_spectrum_amp_phase_cuda(torch.zeros(1024), 256, 128)
+    conv_cuda.circular_convolve_cuda(torch.zeros(3, 256),
+                                     dispatch.fft(torch.zeros(256)), 256)
+    z = torch.zeros(4, 128)
+    pfb_cuda.pfb_channelize_frames_cuda(ComplexArray(z, z), torch.ones(256), 128)
+    fir_filter(torch.zeros(2, 2048), torch.ones(127))
     assert fft_cuda.LAUNCHES == before == {"spectrum_onesided": 0, "fft_rows": 0,
                                            "spectrum_twosided": 0,
-                                           "stft_onesided": 0}
+                                           "stft_onesided": 0, "osconv": 0,
+                                           "osconv_pair": 0, "pfb": 0}
 
 
 def test_resolve_precision():
@@ -322,8 +330,8 @@ def test_build_is_keyed_by_source_hash(tmp_path, monkeypatch):
         f.write("\n// edited\n")
     assert _build._digest() not in (first, second)
     assert [p.name for p in _build.sources()] == [
-        "fft_rows.cu", "spectrum_onesided.cu", "spectrum_twosided.cu",
-        "stft_onesided.cu"]
+        "fft_rows.cu", "osconv.cu", "pfb.cu", "spectrum_onesided.cu",
+        "spectrum_twosided.cu", "stft_onesided.cu"]
 
 
 def test_build_raises_without_nvcc(tmp_path, monkeypatch):
