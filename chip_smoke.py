@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's spectrum, spectrogram, FIR and channelizer paths
-once on one CUDA card and check them.
+"""Drive the PyTorch port's spectrum, spectrogram, FIR, channelizer and
+large-FFT paths once on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -27,7 +27,23 @@ Phases (one line each; any failed gate exits non-zero):
      launch counts one call at a time, and times;
  13. config 5 (bench.py's 256-channel PFB) and C = 128, 4096 against the
      float64 oracle, frames/flat/streaming bit-equal, launch counts, and
-     K6 against its plain version on 1e8 complex samples.
+     K6 against its plain version on 1e8 complex samples;
+ 14. K7 (column FFT) forward and inverse, with and without the folded grid,
+     against float64 numpy, its roundtrip and its plain version in float64,
+     a ragged width, donate in place;
+ 15. the large FFT at full width: 2^20 points (K7 then K2) against float64
+     numpy, its roundtrip, 2^16, 2^21 (2^24 printed), dispatch over the last
+     axis and axis 0, the 2^15 four-step route with the process-wide matmul
+     precision lowered, launch counts;
+ 16. the entries above 16384 points: spectrum() of a 2^20-point frame (this
+     slice's main path, counted), rfft/irfft at 2^21, a 32768-point
+     overlap-save block, 32768 channels;
+ 17. times at [64, 2^20] and for one 2^20 row: K7, the forward pair, the
+     natural-order FFT, the roundtrip, the plain versions, torch.fft.fft as
+     the library yardstick (never on a path), the tile widths, and axis -2
+     through K7 against movedim + K2;
+ 18. each kernel's time beside its bound (bytes over 3.35 TB/s or operations
+     over 67 TFLOP/s, whichever is larger), its plain version and the library.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -76,6 +92,26 @@ C5_MORE = (128, 4096)
 C5_TONE = 37             # a tone at +37/256 of the rate lands in channel 37
 C5_CHUNK_FRAMES = 64     # streaming chunks of the config-5 stream
 C5_WIDE = 10 ** 8        # 1 s of 100 Msps IQ
+# tests/test_pallas_fft.py:302's shapes, one 2^20 view with its grid, a ragged m
+K7_SHAPES = ((2, 256, 256), (2, 1024, 384), (2, 4096, 128), (1, 1024, 1024),
+             (3, 512, 100))
+K7_GATE_DB = 110.0       # tests/test_pallas_fft.py:313, forward against numpy
+K7_RT_GATE_DB = 120.0    # tests/test_pallas_fft.py:316, roundtrip
+K7_PLAIN_GATE_DB = 125.0  # against its plain version in float64 on the card
+BIG_N = 1 << 20          # BASELINE.json's 1M-point FFT, bench.py:289-305
+BIG_MORE = (1 << 16, 1 << 21)
+BIG_PRINT = 1 << 24      # printed, not gated
+BIG_BATCH = 64           # [64, 2^20] complex f32: 512 MB, a long-capture job
+FOURSTEP_N = 1 << 15     # the one size between the row kernel and the big route
+BIG_TONE_BIN = 4096      # spectrum() of one 2^20-point frame: a tone on this bin
+RFFT_N = 1 << 21
+LONG_TAPS = 4000         # its default overlap-save block is 32768 points
+LONG_FIR_LEN = 100000
+LONG_CHANNELS = 32768
+LONG_TPB, LONG_FRAMES = 2, 16
+K7_TILES = (4, 8, 16)    # columns per block tried at n = 1024
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM, published
+F32_FLOPS_PER_S = 67e12      # H100 SXM, float32 outside the tensor cores
 
 
 def say(*parts) -> None:
@@ -175,6 +211,12 @@ def main() -> int:
                                           pfb_channelize_step, pfb_cuda,
                                           pfb_frames_stream_init, pfb_stream_init,
                                           pfb_taps)
+    from pragma_dsp_tpu_torch.ops import irfft, rfft
+    from pragma_dsp_tpu_torch.ops.fft_big import (_interstage_grids,
+                                                  big_permuted_to_natural,
+                                                  big_split, fft_big,
+                                                  fft_big_permuted,
+                                                  ifft_big_from_permuted)
     from pragma_dsp_tpu_torch.ops.polyphase import design_lowpass
     from pragma_dsp_tpu_torch.stream import (frame_signal, istft, spectrogram,
                                              spectrogram_amplitude, stft,
@@ -272,13 +314,7 @@ def main() -> int:
     f32 = fft_cuda.fft_rows_cuda(re.bfloat16().float(), im.bfloat16().float())
     gate(bf.real.dtype == torch.bfloat16 and torch.equal(bf.real, f32[0].bfloat16()),
          "bf16 dispatch is not the f32 kernel cast back")
-    try:
-        dispatch.fft(ComplexArray(torch.zeros(1, 32768, device=dev),
-                                  torch.zeros(1, 32768, device=dev)))
-        gate(False, "n=32768 on CUDA did not raise")
-    except NotImplementedError:
-        pass
-    say("[4] K2 donate in place, axis-0 and bf16 dispatch, n=32768 raises: ok")
+    say("[4] K2 donate in place, axis-0 and bf16 dispatch: ok (n > 16384: phase 15)")
 
     # 5. the main path, counted
     xd = k1[MAIN]["x"]
@@ -318,12 +354,16 @@ def main() -> int:
         f"entry batch vs f64 {s_entry:.1f} dB, peaks {host(e_idx).tolist()}")
 
     # 6. times: median over runs of `inner` back-to-back calls, CUDA events
-    def timed(fn, runs=11, inner=5):
+    def timed(fn, runs=11, inner=5, before=None):
+        """``before`` runs ahead of each timed window (it refills a buffer
+        that ``fn`` transforms in place, so the values stay finite)."""
         fn()
         torch.cuda.synchronize()
         per = []
         for _ in range(runs):
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            if before is not None:
+                before()
             a.record()
             for _ in range(inner):
                 fn()
@@ -803,38 +843,407 @@ def main() -> int:
         f"{float(kw.real.abs().max()):.1f})")
     del kw, pw, xwide, fwide
 
+    # 14. K7 alone: forward and inverse, with and without the folded grid
+    def planes_snr(ref: np.ndarray, pair) -> float:
+        return csnr_db(ref, host(pair[0]), host(pair[1]))
+
+    for batch, n, m in K7_SHAPES:
+        rng = np.random.default_rng(SEED + n + m)
+        z = rng.standard_normal((batch, n, m)) + 1j * rng.standard_normal((batch, n, m))
+        re, im = cuda(z.real.astype(np.float32)), cuda(z.imag.astype(np.float32))
+        zf = host(re).astype(np.float64) + 1j * host(im)
+        if (n, m) == big_split(BIG_N):
+            grid = _interstage_grids(n, m, -1.0)       # the 2^20 transform's own
+        else:
+            ang = rng.uniform(0.0, 2.0 * np.pi, (n, m))
+            grid = (np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32))
+        g = grid[0].astype(np.float64) + 1j * grid[1]
+        fold = tuple(cuda(a) for a in grid)
+        fold64 = tuple(a.double() for a in fold)
+        label = f"K7 [{batch}, {n}, {m}]"
+        worst = {"f64": np.inf, "plain": np.inf}
+        for inverse in (False, True):
+            for use in (None, fold):
+                got = fft_cuda.fft_cols_cuda(re, im, inverse, use)
+                plain = fft_cuda.fft_cols_plain(re.double(), im.double(), inverse,
+                                                None if use is None else fold64)
+                torch.cuda.synchronize()
+                mul = 1.0 if use is None else g
+                ref = (np.fft.ifft(zf * mul, axis=-2) if inverse
+                       else np.fft.fft(zf, axis=-2) * mul)
+                gate(got[0].shape == re.shape and bool(torch.isfinite(got[0]).all())
+                     and bool(torch.isfinite(got[1]).all()), f"{label}: shape or non-finite")
+                worst["f64"] = min(worst["f64"], planes_snr(ref, got))
+                worst["plain"] = min(worst["plain"], dev_snr_db(plain, got))
+        back = fft_cuda.fft_cols_cuda(*fft_cuda.fft_cols_cuda(re, im), inverse=True)
+        conj = (fold[0], -fold[1])
+        back_fold = fft_cuda.fft_cols_cuda(*fft_cuda.fft_cols_cuda(re, im, fold=fold),
+                                           inverse=True, fold=conj)
+        s_rt = min(planes_snr(zf, back), planes_snr(zf, back_fold))
+        kept = fft_cuda.fft_cols_cuda(re, im, fold=fold)
+        dre, dim_ = re.clone(), im.clone()
+        out = fft_cuda.fft_cols_cuda(dre, dim_, fold=fold, donate=True)
+        gate(out[0].data_ptr() == dre.data_ptr() and out[1].data_ptr() == dim_.data_ptr()
+             and torch.equal(out[0], kept[0]) and torch.equal(out[1], kept[1]),
+             f"{label}: donate=True did not write in place or differs")
+        say(f"[14] {label}, forward/inverse x fold/no fold: worst SNR vs f64 "
+            f"{worst['f64']:.1f} dB (gate >= {K7_GATE_DB}), vs plain in float64 "
+            f"{worst['plain']:.1f} dB (gate >= {K7_PLAIN_GATE_DB}), roundtrip "
+            f"{s_rt:.1f} dB (gate >= {K7_RT_GATE_DB}); donate in place and equal")
+        gate(worst["f64"] >= K7_GATE_DB, f"{label}: SNR vs f64 {worst['f64']:.1f} dB")
+        gate(worst["plain"] >= K7_PLAIN_GATE_DB,
+             f"{label}: SNR vs plain {worst['plain']:.1f} dB")
+        gate(s_rt >= K7_RT_GATE_DB, f"{label}: roundtrip {s_rt:.1f} dB")
+    del re, im, fold, fold64, got, plain, back, back_fold, kept, dre, dim_, out
+
+    # 15. the large FFT at full width
+    def big_input(batch: int, n: int):
+        rng = np.random.default_rng(SEED + n.bit_length())
+        re = rng.standard_normal((batch, n)).astype(np.float32)
+        im = rng.standard_normal((batch, n)).astype(np.float32)
+        return ComplexArray(cuda(re), cuda(im)), re.astype(np.float64) + 1j * im
+
+    def natural(p: ComplexArray):
+        n2b, n1b = p.real.shape[-2:]
+        return (big_permuted_to_natural(p.real, n2b, n1b),
+                big_permuted_to_natural(p.imag, n2b, n1b))
+
+    big_snr = {}
+    for n in (BIG_N,) + BIG_MORE + (BIG_PRINT,):
+        x, zf = big_input(2 if n < BIG_PRINT else 1, n)
+        p = fft_big_permuted(x)
+        back = ifft_big_from_permuted(p)
+        nat = natural(p)
+        torch.cuda.synchronize()
+        gate(p.real.shape == x.real.shape[:-1] + big_split(n)
+             and bool(torch.isfinite(p.real).all()) and bool(torch.isfinite(p.imag).all()),
+             f"fft_big_permuted n={n}: shape {tuple(p.real.shape)} or non-finite")
+        big_snr[n] = (planes_snr(np.fft.fft(zf, axis=-1), nat), planes_snr(zf, back))
+        gated = n != BIG_PRINT
+        say(f"[15] fft_big_permuted -> natural, n = {n} as {big_split(n)}: SNR vs f64 "
+            f"{big_snr[n][0]:.1f} dB, ifft_big_from_permuted roundtrip "
+            f"{big_snr[n][1]:.1f} dB"
+            + (f" (gates >= {GATE_DB})" if gated else " (printed, not gated)"))
+        if gated:
+            gate(big_snr[n][0] >= GATE_DB, f"big FFT n={n}: SNR {big_snr[n][0]:.1f} dB")
+            gate(big_snr[n][1] >= GATE_DB,
+                 f"big FFT n={n}: roundtrip {big_snr[n][1]:.1f} dB")
+        if n == BIG_N:
+            xb, nat_b = x, nat
+    del x, p, back, nat, zf
+    auto = dispatch.fft(xb)
+    rt = dispatch.ifft(auto)
+    gate(torch.equal(auto.real, nat_b[0]) and torch.equal(auto.imag, nat_b[1]),
+         "dispatch.fft at 2^20 differs from fft_big_permuted -> natural")
+    s_rt = dev_snr_db(xb, rt)
+    gate(s_rt >= GATE_DB, f"dispatch.fft -> ifft at n={BIG_N}: {s_rt:.1f} dB")
+    col = dispatch.fft(ComplexArray(xb.real.T, xb.imag.T), axis=0)
+    gate(col.real.shape == (BIG_N, 2) and torch.equal(col.real, auto.real.T)
+         and torch.equal(col.imag, auto.imag.T),
+         "dispatch.fft over axis 0 differs from the last-axis result")
+    col_rt = dispatch.ifft(col, axis=0)
+    s_col = dev_snr_db((xb.real.T, xb.imag.T), col_rt)
+    gate(s_col >= GATE_DB, f"dispatch.fft -> ifft over axis 0: {s_col:.1f} dB")
+    say(f"[15] dispatch.fft at n = {BIG_N}: equal to the big route; fft -> ifft "
+        f"{s_rt:.1f} dB; over axis 0 of [{BIG_N}, 2] equal, roundtrip {s_col:.1f} dB "
+        f"(gates >= {GATE_DB})")
+    del auto, rt, col, col_rt, nat_b
+    # n = 2^15: matrix products. With the process-wide matmul precision
+    # lowered (TF32), the route must still read full float32.
+    x15, z15 = big_input(2, FOURSTEP_N)
+    a = torch.randn(512, 512, generator=torch.Generator(device=dev).manual_seed(SEED),
+                    device=dev)
+    exact = a.double() @ a.double()
+    kept_precision = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        tf32_err = float(((a @ a).double() - exact).abs().max())
+        f15 = dispatch.fft(x15)
+        b15 = dispatch.ifft(f15)
+        gate(torch.get_float32_matmul_precision() == "high",
+             "the four-step route did not restore the matmul precision")
+    finally:
+        torch.set_float32_matmul_precision(kept_precision)
+    f32_err = float(((a @ a).double() - exact).abs().max())
+    s15 = (planes_snr(np.fft.fft(z15, axis=-1), f15), planes_snr(z15, b15))
+    say(f"[15] n = {FOURSTEP_N} (fourstep) under matmul precision 'high' (a plain "
+        f"512x512 product errs {tf32_err:.2e} there, {f32_err:.2e} at "
+        f"'{kept_precision}'): SNR vs f64 {s15[0]:.1f} dB, roundtrip {s15[1]:.1f} dB "
+        f"(gates >= {GATE_DB})")
+    gate(min(s15) >= GATE_DB, f"fourstep n={FOURSTEP_N}: SNR {s15[0]:.1f}/{s15[1]:.1f} dB")
+    del a, exact, f15, b15
+    pb = fft_big_permuted(xb)
+    for label, fn, want in (
+            (f"fft_big_permuted n={BIG_N}", lambda: fft_big_permuted(xb),
+             {"fft_cols": 1, "fft_rows": 1}),
+            (f"ifft_big_from_permuted n={BIG_N}", lambda: ifft_big_from_permuted(pb),
+             {"fft_cols": 1, "fft_rows": 1}),
+            (f"dispatch.fft n={BIG_N}", lambda: dispatch.fft(xb),
+             {"fft_cols": 1, "fft_rows": 1}),
+            (f"dispatch.fft n={FOURSTEP_N}", lambda: dispatch.fft(x15), {})):
+        got = counted(fn)
+        want = {key: want.get(key, 0) for key in fft_cuda.LAUNCHES}
+        say(f"[15] launches during {label}: {got}")
+        gate(got == want, f"{label} launched {got}, expected {want}")
+    del pb, x15
+
+    # 16. the entries above 16384 points. spectrum() of one 2^20-point frame
+    # is this slice's main path: counted on its own.
+    t = np.arange(BIG_N) / SR
+    tone_hz = BIG_TONE_BIN * SR / BIG_N
+    frame = cuda((0.8 * np.sin(2 * np.pi * tone_hz * t)).astype(np.float32))
+    for key in fft_cuda.LAUNCHES:
+        fft_cuda.LAUNCHES[key] = 0
+    r = spectrum(frame, sample_rate=SR, window="hann")
+    torch.cuda.synchronize()
+    big_launches = dict(fft_cuda.LAUNCHES)
+    say(f"[16] launches during spectrum() of one {BIG_N}-point frame: {big_launches}")
+    gate(big_launches == {key: int(key in ("fft_cols", "fft_rows"))
+                          for key in fft_cuda.LAUNCHES},
+         f"spectrum() of a {BIG_N}-point frame launched {big_launches}")
+    amp = host(r.amplitude)
+    ref = onesided_oracle(host(frame)[None], window_values("hann", BIG_N))[0]
+    s_big = snr_db(ref, amp)
+    gate(amp.shape == (BIG_N // 2 + 1,) and np.isfinite(amp).all()
+         and np.isfinite(host(r.phase)).all(), "spectrum() 2^20: shape or non-finite")
+    gate(int(r.peak.index) == BIG_TONE_BIN and float(r.peak.frequency) == tone_hz
+         and abs(float(r.peak.amplitude) - 0.4) <= 1e-4,
+         f"spectrum() 2^20: peak {int(r.peak.index)} at {float(r.peak.frequency)} Hz, "
+         f"amplitude {float(r.peak.amplitude)}")
+    gate(s_big >= GATE_DB, f"spectrum() 2^20: SNR vs f64 {s_big:.1f} dB")
+    gate(float(r.phase[0]) in (0.0, float(np.float32(np.pi)))
+         and float(r.phase[-1]) in (0.0, float(np.float32(np.pi))),
+         "spectrum() 2^20: DC or Nyquist phase is not exactly 0 or pi")
+    say(f"[16] spectrum() of one {BIG_N}-point Hann frame: peak bin {int(r.peak.index)} "
+        f"at {float(r.peak.frequency)} Hz, amplitude {float(r.peak.amplitude):.6f} "
+        f"(0.8 x Hann's coherent gain), SNR vs f64 {s_big:.1f} dB (gate >= {GATE_DB})")
+    del r, frame, amp, ref
+    rng = np.random.default_rng(SEED)
+    y = rng.standard_normal(RFFT_N).astype(np.float32)
+    yd = cuda(y)
+    got = counted(lambda: rfft(yd))
+    gate(got["fft_cols"] == 1 and got["fft_rows"] == 1, f"rfft n={RFFT_N} launched {got}")
+    spec = rfft(yd)
+    s_rfft = planes_snr(np.fft.rfft(y.astype(np.float64)), spec)
+    s_irfft = snr_db(y, host(irfft(spec)))
+    gate(spec.real.shape == (RFFT_N // 2 + 1,) and min(s_rfft, s_irfft) >= GATE_DB,
+         f"rfft/irfft n={RFFT_N}: {s_rfft:.1f}/{s_irfft:.1f} dB")
+    del spec, yd
+    long_taps = design_lowpass(LONG_TAPS, FIR_CUTOFF).astype(np.float32)
+    xl = rng.standard_normal(LONG_FIR_LEN).astype(np.float32)
+    xld = cuda(xl)
+    got = counted(lambda: fir_filter(xld, long_taps, "overlap_save"))
+    gate(not any(got.values()), f"a {LONG_TAPS}-tap overlap-save launched {got}")
+    s_long = snr_db(lfilter(long_taps.astype(np.float64), 1.0, xl.astype(np.float64)),
+                    host(fir_filter(xld, long_taps, "overlap_save")))
+    gate(s_long >= FIR_GATE_DB, f"FIR {LONG_TAPS} taps (32768-point blocks): {s_long:.1f} dB")
+    zc = (rng.standard_normal(LONG_CHANNELS * LONG_FRAMES)
+          + 1j * rng.standard_normal(LONG_CHANNELS * LONG_FRAMES))
+    yc = pfb_channelize(ComplexArray(cuda(zc.real.astype(np.float32)),
+                                     cuda(zc.imag.astype(np.float32))), LONG_CHANNELS,
+                        pfb_taps(LONG_CHANNELS, LONG_TPB))
+    s_chan = csnr_db(pfb_oracle(zc, pfb_taps(LONG_CHANNELS, LONG_TPB), LONG_CHANNELS),
+                     host(yc.real), host(yc.imag))
+    gate(yc.real.shape == (LONG_FRAMES, LONG_CHANNELS) and s_chan >= GATE_DB,
+         f"channelizer C={LONG_CHANNELS}: {s_chan:.1f} dB")
+    say(f"[16] rfft n = {RFFT_N}: {s_rfft:.1f} dB, irfft back {s_irfft:.1f} dB vs numpy "
+        f"(gate >= {GATE_DB}, K7 + K2 once each); overlap-save with {LONG_TAPS} taps "
+        f"(32768-point blocks, fourstep, no kernel) {s_long:.1f} dB vs f64 lfilter "
+        f"(gate >= {FIR_GATE_DB}); C = {LONG_CHANNELS} channels {s_chan:.1f} dB vs the "
+        f"f64 oracle (gate >= {GATE_DB})")
+    del yc, xld
+
+    # 17. times: [BIG_BATCH, 2^20] and one row, CUDA events
+    n2b, n1b = big_split(BIG_N)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    big_ms, big_peak, tile_ms = {}, {}, {}
+    grid_b = tuple(cuda(a) for a in _interstage_grids(n2b, n1b, -1.0))
+    for batch in (BIG_BATCH, 1):
+        fresh = ComplexArray(torch.randn((batch, BIG_N), generator=gen, device=dev),
+                             torch.randn((batch, BIG_N), generator=gen, device=dev))
+        work = ComplexArray(fresh.real.clone(), fresh.imag.clone())
+        w3 = (work.real.view(batch, n2b, n1b), work.imag.view(batch, n2b, n1b))
+
+        def refill():
+            work.real.copy_(fresh.real)
+            work.imag.copy_(fresh.imag)
+
+        def roundtrip():
+            ifft_big_from_permuted(fft_big_permuted(work, donate=True), donate=True)
+
+        def movedim_rows():
+            re = torch.movedim(w3[0], -2, -1).contiguous().view(-1, n2b)
+            im = torch.movedim(w3[1], -2, -1).contiguous().view(-1, n2b)
+            ore, oim = fft_cuda.fft_rows_cuda(re, im, donate=True)
+            return (torch.movedim(ore.view(batch, n1b, n2b), -1, -2).contiguous(),
+                    torch.movedim(oim.view(batch, n1b, n2b), -1, -2).contiguous())
+
+        cplx = torch.complex(fresh.real, fresh.imag)
+        runs = {
+            "K7 with the fold": (lambda: fft_cuda.fft_cols_cuda(*w3, fold=grid_b), None),
+            "K7 with the fold, donated": (
+                lambda: fft_cuda.fft_cols_cuda(*w3, fold=grid_b, donate=True), refill),
+            "K7 plain with the fold": (
+                lambda: fft_cuda.fft_cols_plain(*w3, fold=grid_b), None),
+            "torch.fft.fft dim -2 (library)": (
+                lambda: torch.fft.fft(cplx.view(batch, n2b, n1b), dim=-2), None),
+            "K2 on the pair's rows, donated": (
+                lambda: fft_cuda.fft_rows_cuda(work.real.view(-1, n1b),
+                                               work.imag.view(-1, n1b), donate=True),
+                refill),
+            "fft_big_permuted, donated": (
+                lambda: fft_big_permuted(work, donate=True), refill),
+            "fft_big_permuted": (lambda: fft_big_permuted(work), None),
+            "fft_big (natural order)": (lambda: fft_big(work), None),
+            "roundtrip permuted, donated": (roundtrip, None),
+            "plain pair (Stockham columns, grid, Stockham rows)": (
+                lambda: fft_cuda.fft_rows_plain(*(p.reshape(-1, n1b) for p in
+                                                  fft_cuda.fft_cols_plain(*w3, fold=grid_b))),
+                None),
+            "torch.fft.fft dim -1 (library)": (lambda: torch.fft.fft(cplx, dim=-1), None),
+            "axis -2 through dispatch (K7)": (
+                lambda: dispatch.fft(ComplexArray(*w3), axis=-2), None),
+            "axis -2 as movedim + K2": (movedim_rows, None),
+        }
+        base = torch.cuda.memory_allocated()
+        for label, (fn, before) in runs.items():
+            refill()
+            torch.cuda.reset_peak_memory_stats()
+            fn()
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - base) / 1e6
+            slow = "plain" in label
+            ms = (timed(fn, runs=3, inner=1) if slow
+                  else timed(fn, runs=7, inner=2, before=before))
+            big_ms[(label, batch)], big_peak[(label, batch)] = ms, peak
+            say(f"[17] {label} [{batch}, {BIG_N}] as [{batch}, {n2b}, {n1b}] on {name} "
+                f"({card}): {ms:.4f} ms, {batch * BIG_N / ms / 1e3:.0f} Msamples/s, peak "
+                f"{peak:.1f} MB above the input")
+        if batch == BIG_BATCH:
+            for tl in K7_TILES:
+                tile_ms[tl] = timed(lambda: fft_cuda._launch_fft_cols(
+                    *w3, False, grid_b, False, tile=tl), runs=7, inner=2)
+            say(f"[17] K7 [{batch}, {n2b}, {n1b}] by columns per block: "
+                + ", ".join(f"{tl}: {ms:.4f} ms" for tl, ms in tile_ms.items())
+                + f" (the wrapper picks {fft_cuda.cols_tile(n2b, n1b)})")
+            # axis -2: rounds of K7, movedim, movedim, K7
+            ab = {"axis -2 through dispatch (K7)": [], "axis -2 as movedim + K2": []}
+            for i in range(AB_ROUNDS):
+                order = tuple(ab)[::1 if i % 2 == 0 else -1]
+                for label in order + order[::-1]:
+                    ab[label].append(timed(runs[label][0], runs=3, inner=2))
+            k7_r, mv_r = (np.asarray(v) for v in ab.values())
+            say(f"[17] axis -2 A/B over {AB_ROUNDS} rounds: K7 median {np.median(k7_r):.4f} "
+                f"ms, movedim + K2 median {np.median(mv_r):.4f} ms; K7 faster in "
+                f"{int(sum(a < b for a, b in zip(k7_r, mv_r)))} of {len(k7_r)} samples")
+            refill()
+            kern = fft_cuda.fft_cols_cuda(*w3, fold=grid_b)
+            plain = fft_cuda.fft_cols_plain(*w3, fold=grid_b)
+            k7_err = float(torch.maximum((kern[0] - plain[0]).abs().max(),
+                                         (kern[1] - plain[1]).abs().max()))
+            k7_wide_snr = dev_snr_db(plain, kern)
+            nofold = fft_cuda.fft_cols_cuda(*w3)
+            via = dispatch.fft(ComplexArray(*w3), axis=-2)
+            gate(torch.equal(via.real, nofold[0]) and torch.equal(via.imag, nofold[1]),
+                 "dispatch.fft over axis -2 differs from K7")
+            s_moved = dev_snr_db(movedim_rows(), nofold)
+            gate(s_moved >= K7_GATE_DB, f"K7 vs movedim + K2: {s_moved:.1f} dB")
+            say(f"[17] K7 vs its plain version at [{batch}, {n2b}, {n1b}] with the fold: "
+                f"{k7_wide_snr:.1f} dB (gate >= {K7_PLAIN_GATE_DB}), max|kernel-plain| "
+                f"{k7_err:.3e}; dispatch.fft(axis=-2) == K7, movedim + K2 agrees to "
+                f"{s_moved:.1f} dB")
+            gate(k7_wide_snr >= K7_PLAIN_GATE_DB,
+                 f"K7 at full width: SNR vs plain {k7_wide_snr:.1f} dB")
+            del kern, plain, nofold, via
+        del fresh, work, w3, cplx, runs
+    re, im = k2[MAIN]["re"], k2[MAIN]["im"]
+    cplx = torch.complex(re, im)
+    k2_library_ms = timed(lambda: torch.fft.fft(cplx, dim=-1))
+    say(f"[17] torch.fft.fft (library) [{MAIN[0]}, {MAIN[1]}] complex64 on {name} ({card}): "
+        f"{k2_library_ms:.4f} ms beside K2's {times[('fft_rows', *MAIN)][0]:.4f} ms")
+    del cplx
+
+    def bound(nbytes: float, flops: float):
+        """The least time the card could take: (ms, what sets it)."""
+        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        by_ops = flops / F32_FLOPS_PER_S * 1e3
+        return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+    def fft_flops(n: int) -> float:
+        """Radix-2: n/2 butterflies a stage of 10 real operations each."""
+        return 5.0 * n * np.log2(n)
+
+    # Bytes: every input read once, every output written once, float32.
+    # Operations: the transforms' butterflies plus the elementwise work.
+    b1, n1 = MAIN                                     # K1 amp + phase; K2
+    rows3 = C2_CHANNELS * n_frames                    # K3 on config 2's frames
+    pairs = -(-(nb * C2_CHANNELS) // 2)               # K5b's blocks, two a transform
+    frames6 = C5_WIDE // c                            # K6's frames
+    kb = BIG_BATCH * n2b * n1b                        # K7's points
+    bounds = {
+        "spectrum_onesided": bound(
+            4 * b1 * n1 + 8 * b1 * (n1 // 2 + 1) + 12 * n1,
+            b1 * (fft_flops(n1) + n1 + 6 * (n1 // 2 + 1))),
+        "fft_rows": bound(16 * b1 * n1 + 8 * n1, b1 * fft_flops(n1)),
+        "spectrum_twosided": bound(8 * rows3 * C2_N + 12 * C2_N,
+                                   rows3 * (fft_flops(C2_N) + 6 * C2_N)),
+        "stft_onesided": bound(
+            4 * C2_CHANNELS * C2_LEN + 4 * rows3 * (C2_N // 2 + 1) + 12 * C2_N,
+            rows3 * (fft_flops(C2_N) + C2_N + 5 * (C2_N // 2 + 1))),
+        "osconv": bound(8 * n_fir + 16 * n_fir, 2 * fft_flops(n_fir) + 7 * n_fir),
+        "osconv_pair": bound(8 * nb * C2_CHANNELS * n_fir + 16 * n_fir,
+                             pairs * (2 * fft_flops(n_fir) + 8 * n_fir)),
+        "pfb": bound(16 * C5_WIDE + 4 * C5_TPB * c + 8 * c,
+                     frames6 * (4 * C5_TPB * c + fft_flops(c))),
+        "fft_cols": bound(16 * kb + 8 * n2b * n1b + 8 * n2b,
+                          BIG_BATCH * n1b * fft_flops(n2b) + 6 * kb),
+    }
+
     kernels = []
-    for kname, src, replaces, err, (ms, pms), count in (
+    for kname, src, replaces, err, (ms, pms), count, library_ms in (
             ("spectrum_onesided", "spectrum_onesided.cu",
              "pragma_dsp_tpu/ops/fft_pallas.py:1158", k1[MAIN]["err"],
-             times[("spectrum_onesided", *MAIN)], launches["spectrum_onesided"]),
+             times[("spectrum_onesided", *MAIN)], launches["spectrum_onesided"], None),
             ("fft_rows", "fft_rows.cu", "pragma_dsp_tpu/ops/fft_pallas.py:338",
-             k2[MAIN]["err"], times[("fft_rows", *MAIN)], launches["fft_rows"]),
+             k2[MAIN]["err"], times[("fft_rows", *MAIN)], launches["fft_rows"],
+             k2_library_ms),
             ("spectrum_twosided", "spectrum_twosided.cu",
              "pragma_dsp_tpu/ops/fft_pallas.py:1550", k3_err,
              (wide_ms["K3 on frames"], wide_ms["plain two-sided (K3) on frames"]),
-             path_launches["spectrum_twosided"]),
+             path_launches["spectrum_twosided"], None),
             ("stft_onesided", "stft_onesided.cu",
              "pragma_dsp_tpu/ops/fft_pallas.py:1173", k4_err,
              (wide_ms["K4 route amp"], wide_ms["plain amp (K1/K4)"]),
-             path_launches["stft_onesided"]),
+             path_launches["stft_onesided"], None),
             ("osconv", "osconv.cu", "pragma_dsp_tpu/ops/conv_pallas.py:77",
              k5_err["osconv"], (fir_ms[f"K5a alone on one [1, {n_fir}] block"],
                                 fir_ms[f"K5 plain on one [1, {n_fir}] block"]),
-             path_launches["osconv"]),
+             path_launches["osconv"], None),
             ("osconv_pair", "osconv.cu", "pragma_dsp_tpu/ops/conv_pallas.py:94",
              k5_err["osconv_pair"],
              (fir_ms[f"K5b alone on the path's [{nb * C2_CHANNELS}, {n_fir}] blocks"],
               fir_ms[f"K5 plain on the path's [{nb * C2_CHANNELS}, {n_fir}] blocks"]),
-             path_launches["osconv_pair"]),
+             path_launches["osconv_pair"], None),
             ("pfb", "pfb.cu", "pragma_dsp_tpu/ops/pfb_pallas.py:73", pfb_err,
              (pfb_ms["K6 (pfb_channelize)"], pfb_ms["plain (branch filter + Stockham)"]),
-             path_launches["pfb"])):
+             path_launches["pfb"], None),
+            ("fft_cols", "fft_cols.cu", "pragma_dsp_tpu/ops/fft_pallas.py:717", k7_err,
+             (big_ms[("K7 with the fold", BIG_BATCH)],
+              big_ms[("K7 plain with the fold", BIG_BATCH)]),
+             big_launches["fft_cols"],
+             big_ms[("torch.fft.fft dim -2 (library)", BIG_BATCH)])):
         gate(count > 0, f"{kname} was not launched on its path")
+        bound_ms, bound_by = bounds[kname]
         kernels.append({"name": kname, "route": "cuda",
                         "source": f"pragma_dsp_tpu_torch/csrc/{src}",
                         "replaces": replaces, "launches": count,
-                        "max_abs_err": err, "ms": ms, "plain_ms": pms})
+                        "max_abs_err": err, "ms": ms, "plain_ms": pms,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": library_ms})
+        say(f"[18] {kname}: {ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+            f"({100 * bound_ms / ms:.1f}% of the time), plain {pms:.4f} ms, library "
+            + ("none" if library_ms is None else f"{library_ms:.4f} ms")
+            + f", launches on its path {count}")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))

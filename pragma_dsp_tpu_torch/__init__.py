@@ -1,13 +1,13 @@
 """pragma_dsp_tpu_torch — the PyTorch + CUDA port of pragma_dsp_tpu.
 
 The JAX package ``pragma_dsp_tpu`` stays the reference; this package
-mirrors its subpackages (``core``, ``xform``, ``ops``, ``public``,
-``stream``) on PyTorch tensors, with the TPU kernels of the spectrum and
-spectrogram paths rewritten by hand in CUDA for the H100 (``csrc/``). It
-exports only what is ported (see PORT.md).
+mirrors its subpackages (``core``, ``math``, ``fluent``, ``xform``,
+``ops``, ``public``, ``stream``) on PyTorch tensors, with every TPU kernel
+rewritten by hand in CUDA for the H100 (``csrc/``). It exports only what
+is ported (see PORT.md).
 
 * beginner  — ``pragma_dsp_tpu_torch.spectrum`` (root export)
-* power     — ``pragma_dsp_tpu_torch.xform``
+* power     — ``pragma_dsp_tpu_torch.xform``, ``.math``, ``.fluent``
 * expert    — ``pragma_dsp_tpu_torch.core``
 * streaming — ``pragma_dsp_tpu_torch.stream``
 """

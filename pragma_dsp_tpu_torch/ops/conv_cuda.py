@@ -50,9 +50,9 @@ def _launch_osconv(f2: torch.Tensor, hspec: ComplexArray, n: int,
     if f2.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the convolution kernel takes float32 frames, got {f2.dtype}")
     if n > MAX_ROWS_N:
-        raise NotImplementedError(
-            f"convolution kernel covers n <= {MAX_ROWS_N}, got {n}: larger "
-            "blocks are still to be ported (ROADMAP queue 2, K5)")
+        raise ValueError(
+            f"the convolution kernel covers n <= {MAX_ROWS_N}, got {n}: "
+            "ops.fir runs larger blocks as fft x H -> ifft through ops.dispatch")
     if donate and not f2.is_contiguous():
         raise ValueError("donate=True needs contiguous frames")
     # The kernel computes in float32; bfloat16 is cast around it, as the

@@ -1,7 +1,7 @@
-"""Hand-written CUDA kernels of the spectrum and spectrogram paths, each
-beside its plain PyTorch version.
+"""Hand-written CUDA kernels of the spectrum, spectrogram and FFT paths,
+each beside its plain PyTorch version.
 
-Counterpart of the K1-K4 part of ``pragma_dsp_tpu/ops/fft_pallas.py``:
+Counterpart of ``pragma_dsp_tpu/ops/fft_pallas.py``:
 
 * K1 ``spectrum_onesided`` (``csrc/spectrum_onesided.cu``) replaces
   ``_spectrum_onesided_kernel`` + ``_onesided_body``: window -> FFT ->
@@ -15,6 +15,17 @@ Counterpart of the K1-K4 part of ``pragma_dsp_tpu/ops/fft_pallas.py``:
 * K4 ``stft_onesided`` (``csrc/stft_onesided.cu``) replaces
   ``_stft_onesided_kernel``: K1 read straight from a signal at a hop, so a
   spectrogram never materialises its overlapping frames.
+* K7 ``fft_cols`` (``csrc/fft_cols.cu``) replaces ``_fftcols_kernel``: a
+  batched complex FFT over axis -2 of [B, n, m], natural row order in and
+  out, with an optional (n, m) twiddle grid folded into the output
+  (forward) or the input (inverse). It is stage 1 of the large FFT
+  (``ops/fft_big.py``) and the axis -2 route of ``ops.dispatch``.
+
+K1, K3 and K4 hold a whole frame in one block's shared memory, which ends
+at n = 16384. A longer CUDA frame takes the route the JAX package takes in
+effect: window -> ``ops.dispatch.fft`` (the large FFT, K7 then K2) -> |X|,
+phase and scaling in PyTorch, with DC and Nyquist made real as K1 makes
+them.
 
 Each wrapper takes its plain version only because the tensor it was given
 lies on the CPU. For a CUDA tensor it launches its kernel or raises; there
@@ -35,7 +46,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.complex import is_power_of_two
+from ..core.complex import is_power_of_two, next_power_of_two
 from ..core.fft import fft_axis0
 from ..xform.fourier import create_window, window_values
 from . import _build
@@ -43,6 +54,7 @@ from . import _build
 __all__ = [
     "LAUNCHES",
     "MAX_ROWS_N",
+    "MAX_COLS_N",
     "MAX_DFT_N",
     "FRAMED_HOP_QUANTUM",
     "resolve_precision",
@@ -57,10 +69,16 @@ __all__ = [
     "framed_spectrum_amp_phase_plain",
     "fft_rows_cuda",
     "fft_rows_plain",
+    "fft_cols_cuda",
+    "fft_cols_plain",
 ]
 
 # A row of complex f32 must fit one block's shared memory (8*n bytes).
 MAX_ROWS_N = 16384
+# The column kernel's largest transform, the JAX package's bound
+# (fft_pallas.py:791), kept as the contract: ops.fft_big splits by it. Four
+# columns of 4096 complex f32 points fill 128 KiB of shared memory.
+MAX_COLS_N = 4096
 # K3 takes any n up to this through a direct DFT, as the JAX package's
 # dense-DFT route does (fft_pallas.py:1638-1641); above it, n must be a
 # power of two, and one-sided spectra go to K1.
@@ -71,7 +89,8 @@ MAX_DFT_N = 128
 FRAMED_HOP_QUANTUM = 128
 
 LAUNCHES = {"spectrum_onesided": 0, "fft_rows": 0, "spectrum_twosided": 0,
-            "stft_onesided": 0, "osconv": 0, "osconv_pair": 0, "pfb": 0}
+            "stft_onesided": 0, "osconv": 0, "osconv_pair": 0, "pfb": 0,
+            "fft_cols": 0}
 
 _PRECISIONS = ("highest", "bf16x3")
 
@@ -143,25 +162,42 @@ def spectrum_amp_phase_plain(x: torch.Tensor, n: int, window: str,
     DC and Nyquist are made exactly real, as the kernel makes them."""
     xw = (x * create_window(window, n, dtype=x.dtype, device=x.device)).T
     re, im = fft_axis0(xw, torch.zeros_like(xw))
+    return _onesided_from_bins(re.T, im.T, n, with_phase)
+
+
+def _onesided_from_bins(re: torch.Tensor, im: torch.Tensor, n: int,
+                        with_phase: bool):
+    """Bins [..., n] of a real frame's FFT -> (one-sided scaled amplitude,
+    phase or None), DC and Nyquist made exactly real."""
     bins = n // 2 + 1
-    re = re[:bins].T
-    im = im[:bins].T.clone()
-    im[:, 0] = 0.0
-    im[:, -1] = 0.0
+    re = re[..., :bins]
+    im = im[..., :bins].clone()
+    im[..., 0] = 0.0
+    im[..., -1] = 0.0
     amp = torch.hypot(re, im) * (2.0 / n)
-    amp[:, 0] *= 0.5  # exact: DC and Nyquist are scaled by 1/n
-    amp[:, -1] *= 0.5
+    amp[..., 0] *= 0.5  # exact: DC and Nyquist are scaled by 1/n
+    amp[..., -1] *= 0.5
     return (amp, torch.atan2(im, re)) if with_phase else (amp, None)
+
+
+def _long_frame_fft(x: torch.Tensor, n: int, window: str):
+    """The FFT of windowed CUDA float32 frames [B, n] too long for one
+    block (n > MAX_ROWS_N), through ``ops.dispatch``. The windowed copy is
+    dead after the transform, so it is donated."""
+    from .dispatch import fft as _fft
+
+    if x.dtype != torch.float32:
+        raise TypeError(f"the spectrum kernels take float32, got {x.dtype}")
+    return _fft(x * _device_tables(n, window, x.device)[2], donate=True)
 
 
 def _launch_spectrum_onesided(x: torch.Tensor, n: int, window: str,
                               with_phase: bool):
+    if n > MAX_ROWS_N:
+        spec = _long_frame_fft(x, n, window)
+        return _onesided_from_bins(spec.real, spec.imag, n, with_phase)
     if x.dtype != torch.float32:
         raise TypeError(f"the one-sided spectrum kernel takes float32, got {x.dtype}")
-    if n > MAX_ROWS_N:
-        raise NotImplementedError(
-            f"one-sided spectrum kernel covers n <= {MAX_ROWS_N}, got {n}: "
-            "larger frames are still to be ported (ROADMAP queue 2, K1)")
     x = x.contiguous()
     batch = x.shape[0]
     amp = torch.empty((batch, n // 2 + 1), dtype=torch.float32, device=x.device)
@@ -230,8 +266,8 @@ def spectrum_amplitude_cuda(x, n: int, window: str = "rect",
     The routes of spectrum_amplitude_pallas: one-sided power-of-two n > 128
     runs K1; sides="two" and any n <= 128 (power of two or not) run K3.
     Above 128, n must be a power of two (ValueError otherwise); on CUDA,
-    n <= 16384 and float32 only. A CPU tensor runs
-    :func:`spectrum_amplitude_plain`.
+    float32 only, and n > 16384 runs window -> ``ops.dispatch.fft`` -> |X|
+    -> the same scaling. A CPU tensor runs :func:`spectrum_amplitude_plain`.
     """
     x = _amplitude_frames(x, n, precision)
     if not x.is_cuda:
@@ -286,12 +322,11 @@ def spectrum_twosided_plain(x: torch.Tensor, n: int, window: str) -> torch.Tenso
 
 
 def _launch_spectrum_twosided(x: torch.Tensor, n: int, window: str):
+    if n > MAX_ROWS_N:
+        spec = _long_frame_fft(x, n, window)
+        return torch.hypot(spec.real, spec.imag) * (1.0 / n)
     if x.dtype != torch.float32:
         raise TypeError(f"the two-sided spectrum kernel takes float32, got {x.dtype}")
-    if n > MAX_ROWS_N:
-        raise NotImplementedError(
-            f"two-sided spectrum kernel covers n <= {MAX_ROWS_N}, got {n}: "
-            "larger frames are still to be ported (ROADMAP queue 2, K3)")
     x = x.contiguous()
     batch = x.shape[0]
     amp = torch.empty((batch, n), dtype=torch.float32, device=x.device)
@@ -333,12 +368,16 @@ def framed_spectrum_amp_phase_plain(x: torch.Tensor, n: int, hop: int,
 
 def _launch_stft_onesided(x: torch.Tensor, n: int, hop: int, window: str,
                           with_phase: bool):
+    if n > MAX_ROWS_N:
+        # No block holds such a frame: materialise the frames and take the
+        # long-frame route of K1.
+        frames = x.unfold(-1, n, hop)
+        amp, ph = _launch_spectrum_onesided(frames.reshape(-1, n), n, window,
+                                            with_phase)
+        out_shape = frames.shape[:-1] + (n // 2 + 1,)
+        return amp.reshape(out_shape), (ph.reshape(out_shape) if with_phase else None)
     if x.dtype != torch.float32:
         raise TypeError(f"the framed spectrum kernel takes float32, got {x.dtype}")
-    if n > MAX_ROWS_N:
-        raise NotImplementedError(
-            f"framed spectrum kernel covers n <= {MAX_ROWS_N}, got {n}: "
-            "larger frames are still to be ported (ROADMAP queue 2, K4)")
     x = x.contiguous()
     batch, length = x.shape
     frames = 1 + (length - n) // hop
@@ -388,7 +427,8 @@ def framed_spectrum_amplitude_cuda(x, n: int, hop: int, window: str = "rect",
     [batch..., L] -> [batch..., F, n//2+1], F = 1 + (L - n)//hop, trailing
     samples dropped. Equal to framing followed by
     :func:`spectrum_amplitude_cuda`, but K4 reads the signal directly and
-    never materialises the frames. Requires
+    never materialises the frames (on CUDA up to n = 16384; longer frames
+    are materialised and go through ``ops.dispatch.fft``). Requires
     :func:`framed_spectrum_supported` (n, hop) (ValueError otherwise)."""
     return _framed(x, n, hop, window, precision, with_phase=False)[0]
 
@@ -421,9 +461,9 @@ def _launch_fft_rows(re: torch.Tensor, im: torch.Tensor, inverse: bool,
         raise ValueError("the row FFT kernel needs both planes on one CUDA device")
     n = re.shape[-1]
     if n > MAX_ROWS_N:
-        raise NotImplementedError(
-            f"row FFT kernel covers n <= {MAX_ROWS_N}, got {n}: larger "
-            "transforms are still to be ported (ROADMAP queue 1, step 12)")
+        raise ValueError(
+            f"the row FFT kernel covers n <= {MAX_ROWS_N}, got {n}: "
+            "ops.dispatch.fft routes larger transforms (ops.fft_big)")
     if donate and not (re.is_contiguous() and im.is_contiguous()):
         raise ValueError("donate=True needs contiguous input planes")
     re, im = re.contiguous(), im.contiguous()
@@ -463,3 +503,112 @@ def fft_rows_cuda(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
     if re.is_cuda or im.is_cuda:
         return _launch_fft_rows(re, im, inverse, donate)
     return fft_rows_plain(re, im, inverse)
+
+
+# ── K7: column FFT with a folded twiddle grid ────────────────────────
+
+
+def _fold_mul(re: torch.Tensor, im: torch.Tensor, fold):
+    gc, gs = (torch.as_tensor(g).to(device=re.device, dtype=re.dtype) for g in fold)
+    return re * gc - im * gs, re * gs + im * gc
+
+
+def fft_cols_plain(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
+                   fold=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K7's plain version: the Stockham FFT over axis -2 of [..., n, m], and
+    the grid multiply (after a forward transform, before an inverse one)."""
+    if fold is not None and inverse:
+        re, im = _fold_mul(re, im, fold)
+    n = re.shape[-2]
+    moved = torch.movedim(re, -2, 0).shape
+    ore, oim = fft_axis0(torch.movedim(re, -2, 0).reshape(n, -1),
+                         torch.movedim(im, -2, 0).reshape(n, -1), inverse)
+    ore = torch.movedim(ore.reshape(moved), 0, -2)
+    oim = torch.movedim(oim.reshape(moved), 0, -2)
+    if fold is not None and not inverse:
+        ore, oim = _fold_mul(ore, oim, fold)
+    return ore.contiguous(), oim.contiguous()
+
+
+def cols_tile(n: int, m: int) -> int:
+    """Columns per block of K7: a power of two up to 32 whose (n, tile)
+    complex f32 tile takes 64 KiB of shared memory (128 KiB at n = 4096,
+    where the tile stays at four columns: 16-byte runs), and no wider
+    than m rounded up to a power of two. Two such blocks share an SM; on an
+    H100 at [64, 1024, 1024] eight columns read 1.08 ms against 1.52 ms
+    for four (shorter runs) and 1.41 ms for sixteen (one block an SM)."""
+    return max(1, min(32, max(4, 8192 // n), next_power_of_two(m)))
+
+
+def _launch_fft_cols(re: torch.Tensor, im: torch.Tensor, inverse: bool, fold,
+                     donate: bool, tile: Optional[int] = None):
+    """Launch K7 on [B, n, m] planes. ``tile`` overrides :func:`cols_tile`:
+    the card's measurement of the tile widths uses it, no path does."""
+    if re.dtype != torch.float32 or im.dtype != torch.float32:
+        raise TypeError(f"the column FFT kernel takes float32 planes, got "
+                        f"{re.dtype}/{im.dtype}")
+    if not (re.is_cuda and im.is_cuda and re.device == im.device):
+        raise ValueError("the column FFT kernel needs both planes on one CUDA device")
+    re, im = re.contiguous(), im.contiguous()
+    ore, oim = (re, im) if donate else (torch.empty_like(re), torch.empty_like(im))
+    batch, n, m = re.shape
+    if batch * m == 0:
+        return ore, oim
+    gc = gs = None
+    if fold is not None:
+        gc, gs = (torch.as_tensor(g).to(device=re.device, dtype=torch.float32)
+                  .contiguous() for g in fold)
+    lib = _build.library()
+    twc, tws = _device_tables(n, None, re.device)
+    with torch.cuda.device(re.device):
+        stream = torch.cuda.current_stream(re.device).cuda_stream
+        code = lib.fft_cols_f32(
+            re.data_ptr(), im.data_ptr(), ore.data_ptr(), oim.data_ptr(),
+            None if gc is None else gc.data_ptr(),
+            None if gs is None else gs.data_ptr(), twc.data_ptr(),
+            tws.data_ptr(), batch, n, m,
+            cols_tile(n, m) if tile is None else tile, int(inverse), stream)
+    _build.check(lib, code, "fft_cols")
+    LAUNCHES["fft_cols"] += 1
+    return ore, oim
+
+
+def fft_cols_cuda(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
+                  fold=None, donate: bool = False
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched complex FFT over axis -2 of split planes [..., n, m], natural
+    row order in and out; the forward transform is unnormalised, the
+    inverse scales by 1/n. Power-of-two n in 256..4096, any m.
+
+    ``fold`` = (cos, sin), two (n, m) grids in natural row order: the
+    forward result is multiplied by cos + i*sin, the inverse's input is
+    multiplied by it before the transform (the inter-stage twiddle of
+    :mod:`ops.fft_big` rides the kernel and costs no pass of its own).
+
+    donate=True lets the kernel write the result into ``re``/``im`` (which
+    must be contiguous and dead after the call): each block reads its whole
+    tile of columns into shared memory before it writes, and tiles are
+    disjoint, so in place is safe. A CPU tensor runs :func:`fft_cols_plain`;
+    donate has no effect there.
+    """
+    if re.ndim < 2 or re.shape != im.shape:
+        raise ValueError(f"fft_cols takes two [..., n, m] planes, got "
+                         f"{tuple(re.shape)} and {tuple(im.shape)}")
+    n, m = re.shape[-2:]
+    if not is_power_of_two(n) or n <= MAX_DFT_N:
+        raise ValueError(
+            f"column FFT size must be a power of two > {MAX_DFT_N}, got {n}")
+    if n > MAX_COLS_N:
+        raise ValueError(f"the column FFT covers n <= {MAX_COLS_N}, got {n}")
+    if fold is not None and any(tuple(g.shape) != (n, m) for g in fold):
+        raise ValueError(f"fold grids must be two ({n}, {m}) arrays, got "
+                         f"{[tuple(g.shape) for g in fold]}")
+    if not (re.is_cuda or im.is_cuda):
+        return fft_cols_plain(re, im, inverse, fold)
+    if donate and not (re.is_contiguous() and im.is_contiguous()):
+        # a reshape of anything else would be a copy, and not in place
+        raise ValueError("donate=True needs contiguous input planes")
+    shape = re.shape
+    ore, oim = _launch_fft_cols(re.reshape(-1, n, m), im.reshape(-1, n, m),
+                                inverse, fold, donate)
+    return ore.reshape(shape), oim.reshape(shape)

@@ -8,14 +8,14 @@ Routes, as in the JAX package with CUDA in place of the TPU:
 
 * ``direct`` is a 1-D convolution (``F.conv1d`` with flipped taps after
   k-1 explicit left zeros), in full float32 on CUDA: cuDNN's TF32 default
-  is switched off for the call.
+  is switched off for the call (``ops/_tf32.py``).
 * ``overlap_save`` frames the signal into power-of-two blocks of n that
-  overlap by k-1 samples. A CUDA float32/bfloat16 signal with n > 128
-  (impl "auto" or "cuda") runs the filter spectrum H through the row-FFT
-  kernel K2 and every block through the fused convolution kernel (K5b for
-  two or more blocks, K5a for one; ``ops/conv_cuda.py``). Everything else
-  (float64, n <= 128, the CPU) runs fft -> x H -> ifft through
-  ``ops.dispatch``.
+  overlap by k-1 samples. A CUDA float32/bfloat16 signal with
+  128 < n <= 16384 (impl "auto" or "cuda") runs the filter spectrum H
+  through the row-FFT kernel K2 and every block through the fused
+  convolution kernel (K5b for two or more blocks, K5a for one;
+  ``ops/conv_cuda.py``). Everything else (float64, n <= 128, blocks above
+  16384, the CPU) runs fft -> x H -> ifft through ``ops.dispatch``.
 * ``auto`` takes overlap-save once k >= 64 and the signal is at least 4k
   long, the JAX package's rule.
 
@@ -25,8 +25,6 @@ filtering matches the batch result exactly.
 
 from __future__ import annotations
 
-import contextlib
-import threading
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -35,33 +33,11 @@ from ..core.complex import (ComplexArray, ensure_float, is_power_of_two,
                             next_power_of_two)
 from .conv_cuda import circular_convolve_cuda
 from .dispatch import fft as _fft, get_fft_impl, ifft as _ifft
-from .fft_cuda import MAX_DFT_N
+from ._tf32 import full_float32
+from .fft_cuda import MAX_DFT_N, MAX_ROWS_N
 
 __all__ = ["fir_filter", "FirState", "fir_stream_init", "fir_step",
            "overlap_save_filter"]
-
-
-# The TF32 switch is process-wide: one lock keeps two threads' direct
-# convolutions from restoring it out of order.
-_TF32_LOCK = threading.Lock()
-
-
-@contextlib.contextmanager
-def _no_tf32(x: torch.Tensor):
-    """cuDNN convolutions of float32 default to TF32 on Hopper (about ten
-    mantissa bits); the JAX package's direct path runs at
-    Precision.HIGHEST. Switch TF32 off for the call on a CUDA tensor."""
-    if not x.is_cuda:
-        yield
-        return
-    cudnn = torch.backends.cudnn
-    with _TF32_LOCK:
-        before = cudnn.allow_tf32
-        cudnn.allow_tf32 = False
-        try:
-            yield
-        finally:
-            cudnn.allow_tf32 = before
 
 
 def _conv_causal(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
@@ -72,7 +48,8 @@ def _conv_causal(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
     # so y[n] only sees x[<=n] (zero initial state).
     xb = torch.nn.functional.pad(x.reshape(-1, 1, shape[-1]), (k - 1, 0))
     w = taps.flip(0).reshape(1, 1, k).to(device=x.device, dtype=x.dtype)
-    with _no_tf32(x):
+    # The JAX package's direct path runs at Precision.HIGHEST.
+    with full_float32(x):
         y = torch.nn.functional.conv1d(xb, w)
     return y.reshape(shape)
 
@@ -109,8 +86,9 @@ def fir_filter(x, taps, method: str = "auto",
 def _use_kernel(device_type: str, dtype: torch.dtype, n: int) -> bool:
     """Whether overlap-save blocks of n run the fused kernels: a CUDA
     float32/bfloat16 signal, a power-of-two n > 128, impl "auto" or
-    "cuda" (the JAX rule ``fir.py:107-110``, with CUDA for the TPU)."""
-    return (n > MAX_DFT_N and device_type == "cuda"
+    "cuda" (the JAX rule ``fir.py:107-110``, with CUDA for the TPU), and a
+    block that fits one thread block's shared memory (n <= 16384)."""
+    return (MAX_DFT_N < n <= MAX_ROWS_N and device_type == "cuda"
             and dtype in (torch.float32, torch.bfloat16)
             and get_fft_impl() in ("auto", "cuda"))
 
@@ -121,8 +99,9 @@ def overlap_save_filter(x, taps, block: Optional[int] = None,
 
     Each length-N block consumes N - (K-1) fresh samples and carries the
     previous K-1. N defaults to the power of two >= 8K (at least 256), a
-    good FFT/overlap balance. On CUDA, N <= 16384 (K <= 2048 taps at the
-    default N); larger blocks raise NotImplementedError.
+    good FFT/overlap balance. On CUDA the fused kernels take N <= 16384
+    (K <= 2048 taps at the default N); larger blocks run fft -> x H -> ifft
+    through ``ops.dispatch``.
     """
     x = ensure_float(x)     # taps are cast to x.dtype below
     taps = torch.as_tensor(taps, dtype=x.dtype, device=x.device)

@@ -96,9 +96,10 @@ def _launch_pfb(xr: torch.Tensor, xi: torch.Tensor, hp: torch.Tensor
         raise ValueError("the PFB kernel needs both planes on one CUDA device")
     t_taps, c = hp.shape
     if c > MAX_ROWS_N:
-        raise NotImplementedError(
-            f"PFB kernel covers C <= {MAX_ROWS_N}, got {c}: more channels are "
-            "still to be ported (ROADMAP queue 2, K6)")
+        raise ValueError(
+            f"the PFB kernel covers C <= {MAX_ROWS_N}, got {c}: "
+            "ops.channelizer runs more channels as a branch filter and "
+            "ops.dispatch.fft")
     b, m, _ = xr.shape
     xr, xi = xr.contiguous(), xi.contiguous()
     ore, oim = torch.empty_like(xr), torch.empty_like(xi)

@@ -15,6 +15,7 @@ from .fourier import (
     phase,
     window_values,
 )
+from .fluent import FluentFFT
 
 __all__ = [
     "FFT",
@@ -30,4 +31,5 @@ __all__ = [
     "magnitude",
     "phase",
     "window_values",
+    "FluentFFT",
 ]

@@ -12,6 +12,13 @@ The DSP entries (fir_filter with 65 taps, overlap-save or direct by the
 auto rule; pfb_channelize at 16 channels) run over the same inputs: both
 raise the same exception type or give the same numbers.
 
+So do the FFT-family entries: ``ops.rfft`` followed by ``ops.irfft``,
+``ops.fft`` pinned to the two-kernel route (``impl="big"``, 2^16 points;
+the short input is outside its range in both packages) and a
+``FluentFFT`` chain with its bound inverse. The JAX two-kernel route
+computes a float64 operand in float32 (its kernels cast); the port keeps
+float64 there, so that one case is checked against numpy instead.
+
 One known fault of the JAX package is held apart instead of enshrined:
 its ``spectrogram_amplitude`` raises on float64 input at one-sided
 n > 128 (the Pallas kernel K1 stores float32 into a float64 output). The
@@ -200,5 +207,56 @@ def test_dsp_entries_agree_with_jax(entry, kind):
             _dsp_call(pops, entry, torch.from_numpy(x))
         return
     got = _dsp_call(pops, entry, torch.from_numpy(x))
+    _assert_same(_arrays(got), _arrays(ref), F64_TOL if kind == "f64" else AMP_TOL,
+                 label)
+
+
+FFT_ENTRIES = ("rfft", "irfft_of_rfft", "fft_big", "fluent_chain")
+BIG_N = 1 << 16
+JAX_F32_BIG = ("fft_big", "f64")
+
+
+def _pow2_prefix(x: np.ndarray) -> np.ndarray:
+    return x[: 1 << (x.size.bit_length() - 1)]
+
+
+def _fft_call(entry: str, x, ops, xform, fluent):
+    if entry == "rfft":
+        return ops.rfft(x)
+    if entry == "irfft_of_rfft":
+        return ops.irfft(ops.rfft(x))
+    if entry == "fft_big":
+        return ops.fft(x, impl="big")
+    two = fluent.assert_non_zero(2.0)
+    return xform.FluentFFT(x.shape[-1]).forward(x).scale(two).conj().inverse()
+
+
+@pytest.mark.parametrize("kind", INPUTS)
+@pytest.mark.parametrize("entry", FFT_ENTRIES)
+def test_fft_entries_agree_with_jax(entry, kind):
+    # 3n samples cut to a power of two: 512 (short: 128), or 2^16 (2^14).
+    x = _pow2_prefix(_signal(kind, BIG_N // 2 if entry == "fft_big" else DSP_N))
+    label = f"{entry}({kind})"
+    try:
+        ref = _fft_call(entry, jnp.asarray(x), jops, jpd.xform, jpd.fluent)
+        jax.block_until_ready(jax.tree_util.tree_leaves(ref))
+    except Exception as e:  # noqa: BLE001 - the type is what is compared
+        with pytest.raises(type(e)):
+            _fft_call(entry, torch.from_numpy(x), pops, pt.xform, pt.fluent)
+        return
+    got = _fft_call(entry, torch.from_numpy(x), pops, pt.xform, pt.fluent)
+    if (entry, kind) == JAX_F32_BIG:
+        # The JAX kernels compute a float64 operand in float32; the port
+        # runs the same decomposition in float64. Held apart, not enshrined:
+        # the port against numpy at the float64 tolerance, the JAX result
+        # only float32-close (and not float64-close: a fix there shows here).
+        spec, jspec = _arrays(got)["spec"], _arrays(ref)["spec"]
+        want = np.fft.fft(x)
+        scale = float(np.abs(want).max())
+        assert got.real.dtype == torch.float64, label
+        np.testing.assert_allclose(spec, want, rtol=0, atol=F64_TOL * scale)
+        np.testing.assert_allclose(jspec, want, rtol=0, atol=AMP_TOL * scale)
+        assert np.abs(jspec - want).max() > F64_TOL * scale, label
+        return
     _assert_same(_arrays(got), _arrays(ref), F64_TOL if kind == "f64" else AMP_TOL,
                  label)

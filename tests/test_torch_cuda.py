@@ -1,8 +1,10 @@
-"""K1-K6 on a CUDA card, against float64 numpy and their plain versions,
+"""K1-K7 on a CUDA card, against float64 numpy and their plain versions,
 under the bench.py gates (>=105 dB; >=120 dB at n <= 128), and K4
 bit-equal to K1 on the same frames; K5a/K5b (circular convolution) at
 >=125 dB and K6 (the channelizer) at >=105 dB, with their routes' launch
-counts.
+counts; K7 (the column FFT) at >=110 dB forward and >=120 dB roundtrip,
+and the large-FFT path (K7 then K2) with the entries that ride it above
+16384 points.
 
 These tests skip without a card. The file imports neither JAX nor the
 JAX package, so it also runs where JAX is not installed:
@@ -17,9 +19,12 @@ import torch
 from pragma_dsp_tpu_torch import spectrum
 from pragma_dsp_tpu_torch.core import ComplexArray
 from pragma_dsp_tpu_torch.ops import (circular_convolve_cuda, dispatch, fft_cuda,
-                                      fir_filter, pfb_channelize,
-                                      pfb_channelize_frames, pfb_taps)
+                                      fir_filter, irfft, pfb_channelize,
+                                      pfb_channelize_frames, pfb_taps, rfft)
 from pragma_dsp_tpu_torch.ops.conv_cuda import circular_convolve_plain
+from pragma_dsp_tpu_torch.ops.fft_big import (big_permuted_to_natural, big_split,
+                                              fft_big_permuted,
+                                              ifft_big_from_permuted)
 from pragma_dsp_tpu_torch.ops.pfb_cuda import pfb_channelize_plain, pfb_tap_table
 from pragma_dsp_tpu_torch.stream import frame_signal, spectrogram_amplitude
 from pragma_dsp_tpu_torch.xform import window_values
@@ -86,15 +91,37 @@ def test_k2_on_cuda(dev, n):
 
 
 def test_uncovered_cuda_sizes_raise(dev):
-    z = torch.zeros(1, 32768, device=dev)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dispatch.fft(ComplexArray(z, z))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fft_cuda.spectrum_amp_phase_cuda(z, 32768)
+    """Sizes above one block's shared memory no longer raise at the
+    entries: they answer through ops.dispatch (fourstep at 2^15). The
+    kernel wrappers' own size and dtype checks still raise."""
+    n = 32768
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((2, n)).astype(np.float32)
+    xd = torch.from_numpy(x).to(dev)
+    z = torch.zeros_like(xd)
+    out = dispatch.fft(ComplexArray(xd, z))
+    want = np.fft.fft(x.astype(np.float64), axis=-1)
+    got = out.to_numpy_complex()
+    assert _snr(np.stack([want.real, want.imag]), np.stack([got.real, got.imag])) >= 105.0
+    amp, ph = fft_cuda.spectrum_amp_phase_cuda(xd, n, "hann")
+    pamp, pph = fft_cuda.spectrum_amp_phase_plain(xd, n, "hann")
+    assert amp.shape == ph.shape == (2, n // 2 + 1)
+    assert _snr(pamp.cpu().numpy(), amp.cpu().numpy()) >= 105.0
+    assert float(ph[:, [0, -1]].abs().min()) in (0.0, float(np.float32(np.pi)))
+    two = fft_cuda.spectrum_amplitude_cuda(xd, n, "hann", sides="two")
+    ref = np.abs(np.fft.fft(x.astype(np.float64) * window_values("hann", n))) / n
+    assert two.shape == (2, n) and _snr(ref, two.cpu().numpy()) >= 105.0
+    framed = fft_cuda.framed_spectrum_amplitude_cuda(xd, n, n, "hann")
+    assert torch.equal(framed[:, 0], fft_cuda.spectrum_amplitude_cuda(xd, n, "hann"))
+    with pytest.raises(ValueError, match="covers n <= 16384"):
+        fft_cuda.fft_rows_cuda(xd, z)
+    with pytest.raises(ValueError, match="covers n <= 16384"):
+        circular_convolve_cuda(xd, dispatch.fft(z[0]), n)
     with pytest.raises(TypeError, match="float32"):
         fft_cuda.fft_rows_cuda(z.double()[:, :64], z.double()[:, :64])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fft_cuda.spectrum_amplitude_cuda(z, 32768, sides="two")
+    with pytest.raises(TypeError, match="float32"):
+        fft_cuda.fft_cols_cuda(z.double()[:, :1024].reshape(2, 256, 4),
+                               z.double()[:, :1024].reshape(2, 256, 4))
     with pytest.raises(TypeError, match="float32"):
         fft_cuda.spectrum_amplitude_cuda(z.double()[:, :100], 100)
     with pytest.raises(TypeError, match="float32"):
@@ -199,8 +226,15 @@ def test_fir_routes_on_cuda(dev):
     bf = fir_filter(xd.bfloat16(), taps)
     assert bf.dtype == torch.bfloat16 and fft_cuda.LAUNCHES["osconv_pair"] == before + 1
     assert _snr(ref, bf.float().cpu().numpy()) >= 35.0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fir_filter(xd, np.ones(4000) / 4000, "overlap_save")
+    # 4000 taps need a 32768-point block: fft x H -> ifft through dispatch
+    # (fourstep at 2^15), no fused kernel.
+    long_taps = rng.standard_normal(4000) / 4000
+    for key in fft_cuda.LAUNCHES:
+        fft_cuda.LAUNCHES[key] = 0
+    got = fir_filter(xd, long_taps, "overlap_save").cpu().numpy()
+    assert not any(fft_cuda.LAUNCHES.values())
+    long_ref = np.stack([np.convolve(r.astype(np.float64), long_taps)[:r.size] for r in x])
+    assert _snr(long_ref, got) >= 110.0
 
 
 @pytest.mark.parametrize("c,batch", [(128, 1), (256, 3), (4096, 2)])
@@ -230,3 +264,140 @@ def test_k6_on_cuda(dev, c, batch):
     frames = pfb_channelize_frames(ComplexArray(xr.reshape(batch, m, c),
                                                 xi.reshape(batch, m, c)), c, taps)
     assert torch.equal(frames.real, y.real) and torch.equal(frames.imag, y.imag)
+
+
+def _cplanes(z):
+    return np.stack([z.real, z.imag])
+
+
+@pytest.mark.parametrize("batch,n,m", [(2, 256, 256), (2, 1024, 384), (2, 4096, 128),
+                                       (1, 1024, 1024), (3, 512, 100)])
+def test_k7_on_cuda(dev, batch, n, m):
+    rng = np.random.default_rng(n + m)
+    z = (rng.standard_normal((batch, n, m))
+         + 1j * rng.standard_normal((batch, n, m))).astype(np.complex64)
+    g = rng.standard_normal((2, n, m)).astype(np.float32)
+    re = torch.from_numpy(z.real.copy()).to(dev)
+    im = torch.from_numpy(z.imag.copy()).to(dev)
+    fold = tuple(torch.from_numpy(a).to(dev) for a in g)
+    z64, g64 = z.astype(np.complex128), g[0].astype(np.float64) + 1j * g[1]
+    before = fft_cuda.LAUNCHES["fft_cols"]
+    fwd = fft_cuda.fft_cols_cuda(re, im)
+    back = fft_cuda.fft_cols_cuda(*fwd, inverse=True)
+    folded = fft_cuda.fft_cols_cuda(re, im, fold=fold)
+    unfolded = fft_cuda.fft_cols_cuda(re, im, inverse=True, fold=fold)
+    assert fft_cuda.LAUNCHES["fft_cols"] == before + 4
+    host = lambda p: np.stack([p[0].cpu().numpy(), p[1].cpu().numpy()])  # noqa: E731
+    assert _snr(_cplanes(np.fft.fft(z64, axis=-2)), host(fwd)) >= 110.0
+    assert _snr(_cplanes(z64), host(back)) >= 120.0
+    assert _snr(_cplanes(np.fft.fft(z64, axis=-2) * g64), host(folded)) >= 110.0
+    assert _snr(_cplanes(np.fft.ifft(z64 * g64, axis=-2)), host(unfolded)) >= 110.0
+    for inverse, got in ((False, folded), (True, unfolded)):
+        plain = fft_cuda.fft_cols_plain(re.double(), im.double(), inverse,
+                                        tuple(t.double() for t in fold))
+        assert _snr(host(plain), host(got)) >= 125.0
+    dre, dim_ = re.clone(), im.clone()
+    out = fft_cuda.fft_cols_cuda(dre, dim_, fold=fold, donate=True)
+    assert out[0].data_ptr() == dre.data_ptr() and out[1].data_ptr() == dim_.data_ptr()
+    assert torch.equal(out[0], folded[0]) and torch.equal(out[1], folded[1])
+
+
+@pytest.mark.parametrize("bits", [16, 20, 21])
+def test_big_path_on_cuda(dev, bits):
+    n = 1 << bits
+    rng = np.random.default_rng(bits)
+    z = (rng.standard_normal((2, n)) + 1j * rng.standard_normal((2, n))).astype(np.complex64)
+    x = ComplexArray(torch.from_numpy(z.real.copy()).to(dev),
+                     torch.from_numpy(z.imag.copy()).to(dev))
+    n2b, n1b = big_split(n)
+    for key in fft_cuda.LAUNCHES:
+        fft_cuda.LAUNCHES[key] = 0
+    p = fft_big_permuted(x)
+    assert {k: v for k, v in fft_cuda.LAUNCHES.items() if v} == {"fft_cols": 1,
+                                                                 "fft_rows": 1}
+    assert p.real.shape == (2, n2b, n1b)
+    got = np.stack([big_permuted_to_natural(p.real, n2b, n1b).cpu().numpy(),
+                    big_permuted_to_natural(p.imag, n2b, n1b).cpu().numpy()])
+    z64 = z.astype(np.complex128)
+    assert _snr(_cplanes(np.fft.fft(z64, axis=-1)), got) >= 105.0
+    back = ifft_big_from_permuted(p)
+    assert _snr(_cplanes(z64), np.stack([back.real.cpu().numpy(),
+                                         back.imag.cpu().numpy()])) >= 105.0
+    auto = dispatch.fft(x)
+    assert np.array_equal(np.stack([auto.real.cpu().numpy(), auto.imag.cpu().numpy()]), got)
+    assert torch.equal(x.real.cpu(), torch.from_numpy(z.real))     # not donated
+
+
+def test_dispatch_axes_on_cuda(dev):
+    """Axis -2 of a wide operand runs K7 in place of movedim + K2; a long
+    transform over axis 0 runs the two-kernel route on a moved copy."""
+    rng = np.random.default_rng(5)
+    z = (rng.standard_normal((3, 1024, 256))
+         + 1j * rng.standard_normal((3, 1024, 256))).astype(np.complex64)
+    x = ComplexArray(torch.from_numpy(z.real.copy()).to(dev),
+                     torch.from_numpy(z.imag.copy()).to(dev))
+    for key in fft_cuda.LAUNCHES:
+        fft_cuda.LAUNCHES[key] = 0
+    out = dispatch.fft(x, axis=-2)
+    rt = dispatch.ifft(out, axis=1)
+    assert {k: v for k, v in fft_cuda.LAUNCHES.items() if v} == {"fft_cols": 2}
+    want = np.fft.fft(z.astype(np.complex128), axis=-2)
+    assert _snr(_cplanes(want), np.stack([out.real.cpu().numpy(),
+                                          out.imag.cpu().numpy()])) >= 110.0
+    assert _snr(_cplanes(z), np.stack([rt.real.cpu().numpy(),
+                                       rt.imag.cpu().numpy()])) >= 120.0
+    narrow = ComplexArray(x.real[..., :64].contiguous(), x.imag[..., :64].contiguous())
+    before = dict(fft_cuda.LAUNCHES)
+    dispatch.fft(narrow, axis=-2)                         # last dim < 128: K2
+    assert fft_cuda.LAUNCHES["fft_rows"] == before["fft_rows"] + 1
+    assert fft_cuda.LAUNCHES["fft_cols"] == before["fft_cols"]
+    # donate over axis 0 of a 2-D operand: the moved view stays strided, so
+    # the kernel works on its own copy and nothing raises
+    flat = ComplexArray(narrow.real[0], narrow.imag[0])
+    moved = dispatch.fft(ComplexArray(flat.real.clone(), flat.imag.clone()),
+                         axis=0, donate=True)
+    kept = dispatch.fft(flat, axis=0)
+    assert torch.equal(moved.real, kept.real) and torch.equal(moved.imag, kept.imag)
+    tall = (rng.standard_normal((1 << 16, 2))
+            + 1j * rng.standard_normal((1 << 16, 2))).astype(np.complex64)
+    t = ComplexArray(torch.from_numpy(tall.real.copy()).to(dev),
+                     torch.from_numpy(tall.imag.copy()).to(dev))
+    col = dispatch.fft(t, axis=0)
+    want = np.fft.fft(tall.astype(np.complex128), axis=0)
+    assert col.real.shape == (1 << 16, 2)
+    assert _snr(_cplanes(want), np.stack([col.real.cpu().numpy(),
+                                          col.imag.cpu().numpy()])) >= 105.0
+
+
+def test_long_entries_on_cuda(dev):
+    """spectrum() of a 2^20-point frame, rfft/irfft at 2^21 and a
+    32768-channel channelizer ride the large-FFT path."""
+    n, sr, k = 1 << 20, 48000.0, 4096
+    t = np.arange(n) / sr
+    x = (0.8 * np.sin(2 * np.pi * (k * sr / n) * t)).astype(np.float32)
+    for key in fft_cuda.LAUNCHES:
+        fft_cuda.LAUNCHES[key] = 0
+    r = spectrum(torch.from_numpy(x).to(dev), sample_rate=sr, window="hann")
+    assert {key: v for key, v in fft_cuda.LAUNCHES.items() if v} == {"fft_cols": 1,
+                                                                     "fft_rows": 1}
+    assert int(r.peak.index) == k and float(r.peak.frequency) == k * sr / n
+    assert abs(float(r.peak.amplitude) - 0.4) < 1e-4     # Hann's coherent gain 0.5
+    m = 1 << 21
+    rng = np.random.default_rng(21)
+    y = rng.standard_normal(m).astype(np.float32)
+    spec = rfft(torch.from_numpy(y).to(dev))
+    want = np.fft.rfft(y.astype(np.float64))
+    assert _snr(_cplanes(want), np.stack([spec.real.cpu().numpy(),
+                                          spec.imag.cpu().numpy()])) >= 105.0
+    assert _snr(y, irfft(spec).cpu().numpy()) >= 105.0
+    c, frames = 1 << 15, 4
+    z = rng.standard_normal(frames * c) + 1j * rng.standard_normal(frames * c)
+    taps = pfb_taps(c, 2)
+    got = pfb_channelize(ComplexArray(torch.from_numpy(z.real.astype(np.float32)).to(dev),
+                                      torch.from_numpy(z.imag.astype(np.float32)).to(dev)),
+                         c, taps).to_numpy_complex()
+    hp = np.zeros(2 * c)
+    hp[:taps.size] = taps
+    zp = np.concatenate([np.zeros(c), z]).reshape(frames + 1, c)
+    ref = np.fft.fft(hp[:c] * zp[1:] + hp[c:] * zp[:-1], axis=-1)
+    assert _snr(_cplanes(ref), _cplanes(got)) >= 105.0

@@ -1,5 +1,6 @@
 """K1 (one-sided spectrum), K2 (row FFT), K3 (two-sided and small-n
-spectrum) and K4 (framed spectrogram): their plain versions against the JAX
+spectrum) and K4 (framed spectrogram; K7, the column FFT, is in
+tests/test_torch_fft_big.py): their plain versions against the JAX
 Pallas kernels run in interpret mode, their constant tables bit-equal to
 the JAX plans, the wrappers' input rules and launch counts, and the
 kernel build. The kernels themselves run only on a CUDA card:
@@ -294,10 +295,14 @@ def test_launch_counters_stay_zero_on_cpu():
     z = torch.zeros(4, 128)
     pfb_cuda.pfb_channelize_frames_cuda(ComplexArray(z, z), torch.ones(256), 128)
     fir_filter(torch.zeros(2, 2048), torch.ones(127))
+    fft_cuda.fft_cols_cuda(torch.zeros(2, 256, 4), torch.zeros(2, 256, 4))
+    dispatch.fft(torch.zeros(256, 128), axis=-2, impl="cuda")
+    dispatch.fft(torch.zeros(1 << 16), impl="big")
     assert fft_cuda.LAUNCHES == before == {"spectrum_onesided": 0, "fft_rows": 0,
                                            "spectrum_twosided": 0,
                                            "stft_onesided": 0, "osconv": 0,
-                                           "osconv_pair": 0, "pfb": 0}
+                                           "osconv_pair": 0, "pfb": 0,
+                                           "fft_cols": 0}
 
 
 def test_resolve_precision():
@@ -330,8 +335,11 @@ def test_build_is_keyed_by_source_hash(tmp_path, monkeypatch):
         f.write("\n// edited\n")
     assert _build._digest() not in (first, second)
     assert [p.name for p in _build.sources()] == [
-        "fft_rows.cu", "osconv.cu", "pfb.cu", "spectrum_onesided.cu",
+        "fft_cols.cu", "fft_rows.cu", "osconv.cu", "pfb.cu", "spectrum_onesided.cu",
         "spectrum_twosided.cu", "stft_onesided.cu"]
+    assert set(_build._SIGNATURES) == {
+        "fft_cols_f32", "fft_rows_f32", "osconv_f32", "pfb_f32",
+        "spectrum_onesided_f32", "spectrum_twosided_f32", "stft_onesided_f32"}
 
 
 def test_build_raises_without_nvcc(tmp_path, monkeypatch):

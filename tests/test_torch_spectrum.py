@@ -191,15 +191,18 @@ def test_dispatch_policy():
     assert dispatch.choose_impl("cuda", f32, 16384) == "cuda"
     assert dispatch.choose_impl("cuda", f32, 1) == "cuda"
     assert dispatch.choose_impl("cuda", f32, 1000) == "stockham"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dispatch.choose_impl("cuda", f32, 32768)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dispatch.choose_impl("cuda", bf16, 1 << 20)
+    # Above the row kernel: 2^15 rides fourstep (the JAX package's own
+    # routing gap), 2^16..2^26 the two-kernel route, beyond it fourstep.
+    assert dispatch.choose_impl("cuda", f32, 32768) == "fourstep"
+    assert dispatch.choose_impl("cuda", bf16, 1 << 20) == "big"
+    assert dispatch.choose_impl("cuda", f32, 1 << 27) == "fourstep"
     assert dispatch.get_fft_impl() == "auto"
     with pytest.raises(ValueError, match="unknown fft impl"):
         dispatch.set_fft_impl("pallas")
     with pytest.raises(ValueError, match="unknown fft impl"):
-        dispatch.fft(torch.zeros(8), impl="fourstep")
+        dispatch.fft(torch.zeros(8), impl="pallas")
+    four = dispatch.fft(torch.ones(8, dtype=torch.float64), impl="fourstep")
+    np.testing.assert_allclose(four.real.numpy(), [8.0] + [0.0] * 7, atol=1e-14)
 
 
 def test_dispatch_cpu_paths_agree():
