@@ -7,14 +7,23 @@ large-FFT paths once on one CUDA card and check them.
 Phases (one line each; any failed gate exits non-zero):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build the CUDA kernels from pragma_dsp_tpu_torch/csrc/;
-  3. K1 (one-sided spectrum) against float64 numpy and its plain version;
-  4. K2 (row FFT) against float64 numpy, its roundtrip and its plain version;
-  5. the main path: spectrum() and the flagship step, with launch counts;
+  3. K1 (one-sided spectrum) against float64 numpy and its plain version,
+     and at every n from 256 to 16384 (Hann and rect, a batch that leaves a
+     block ragged) against float64 numpy and its step-by-step version in
+     float64;
+  4. K2 (row FFT) against float64 numpy, its roundtrip and its plain
+     version, and forward and inverse at every power of two from 2 to 16384
+     against float64 numpy and its step-by-step version in float64;
+  5. the main path: spectrum() of a numpy array and the flagship step of
+     entry() with no device named (host input lands on the card), with
+     launch counts;
   6. kernel and plain-version times with CUDA events;
   7. config 2 (bench.py's 4096-point 75%-overlap spectrogram of 10 s of
      48 kHz audio): the default (bench.py's own call), K1, K4, K3 and
-     float64 routes against float64 numpy, K4 bit-equal to K1, the
-     stft -> istft roundtrip and the streaming carry;
+     float64 routes against float64 numpy, K4 bit-equal to K1 (there and at
+     every n from 256 to 16384 with hop 128, n/4 and n, an odd number of
+     frames, and against its step-by-step version), the stft -> istft
+     roundtrip and the streaming carry;
   8. K3 at small n against float64 numpy and its plain version;
   9. launch counts of the spectrogram path, one call at a time (the
      default route must launch K4 and nothing else);
@@ -43,7 +52,8 @@ Phases (one line each; any failed gate exits non-zero):
      the library yardstick (never on a path), the tile widths, and axis -2
      through K7 against movedim + K2;
  18. each kernel's time beside its bound (bytes over 3.35 TB/s or operations
-     over 67 TFLOP/s, whichever is larger), its plain version and the library.
+     over 67 TFLOP/s, whichever is larger; K1 and K4 counted as real-input
+     transforms), its plain version and the library.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -65,6 +75,11 @@ K2_SHAPES = (MAIN, (16384, 128), (1024, 16384))
 GATE_DB = 105.0          # bench.py headline, roundtrip and config-2 gates
 SMALL_N_GATE_DB = 120.0  # bench.py small-n FFT gate
 PHASE_TOL = 1e-4         # rad, where amp > 1e-3 (tests/test_pallas_fft.py)
+STEPS_GATE_DB = 125.0    # a kernel against its step-by-step version in float64
+ALL_BATCH = 37           # the every-n sweeps: no multiple of the rows a block takes
+K2_ALL_N = tuple(1 << k for k in range(1, 15))    # every plan of the row FFT
+K1_ALL_N = tuple(1 << k for k in range(8, 15))    # every n K1 and K4 take
+K4_ALL_FRAMES = 7        # frames per signal in K4's sweep (3 signals: 21 frames)
 C2_LEN = 480000          # bench.py config 2 (bench.py:208-227): 10 s at 48 kHz
 C2_N, C2_HOP = 4096, 1024
 C2_TONE = 997.0
@@ -110,6 +125,7 @@ LONG_FIR_LEN = 100000
 LONG_CHANNELS = 32768
 LONG_TPB, LONG_FRAMES = 2, 16
 K7_TILES = (4, 8, 16)    # columns per block tried at n = 1024
+SPIN_CYCLES = 6_000_000  # a few ms of device spin ahead of a queued timing window
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, published
 F32_FLOPS_PER_S = 67e12      # H100 SXM, float32 outside the tensor cores
 
@@ -226,6 +242,17 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     cuda = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
     host = lambda t: t.detach().cpu().numpy()  # noqa: E731
+    f32_pi = float(np.float32(np.pi))
+
+    def dev_snr_db(refs, gots) -> float:
+        """snr_db over planes that stay on the card, in float64: for inputs
+        too large to copy back."""
+        power = err = 0.0
+        for ref, got in zip(refs, gots):
+            ref, got = ref.double(), got.double()
+            power += float((ref * ref).sum())
+            err += float(((got - ref) ** 2).sum())
+        return float("inf") if err == 0.0 else 10 * np.log10(power / err)
 
     # 1. the card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -267,6 +294,35 @@ def main() -> int:
         gate(dph <= PHASE_TOL, f"K1 {n}: phase differs by {dph:.2e} rad")
         k1[(batch, n)] = dict(x=xd, ref=ref, amp=amp, ph=ph, err=err)
 
+    k1_all = {}
+    for n in K1_ALL_N:
+        x = np.random.default_rng(SEED + n).standard_normal((ALL_BATCH, n)).astype(np.float32)
+        xd = cuda(x)
+        for window in ("hann", "rect"):
+            amp, ph = fft_cuda.spectrum_amp_phase_cuda(xd, n, window)
+            samp, sph = fft_cuda.spectrum_amp_phase_steps(xd.double(), n, window)
+            only = fft_cuda.spectrum_amplitude_cuda(xd, n, window)
+            torch.cuda.synchronize()
+            s_ref = snr_db(onesided_oracle(x, window_values(window, n)), host(amp))
+            s_steps = dev_snr_db((samp,), (amp,))
+            mask = host(samp) > 1e-3
+            dph = float(wrapped(host(ph)[mask] - host(sph)[mask]).max())
+            edges = host(ph)[:, (0, -1)]
+            gate(bool(torch.isfinite(amp).all()) and bool(torch.isfinite(ph).all()),
+                 f"K1 {n} {window}: non-finite")
+            gate(s_ref >= GATE_DB, f"K1 {n} {window}: SNR vs f64 {s_ref:.1f} dB")
+            gate(s_steps >= STEPS_GATE_DB, f"K1 {n} {window}: vs steps {s_steps:.1f} dB")
+            gate(dph <= PHASE_TOL, f"K1 {n} {window}: phase differs by {dph:.2e} rad")
+            gate(bool(np.isin(edges, (0.0, f32_pi)).all())
+                 and not np.signbit(edges).any(),
+                 f"K1 {n} {window}: DC or Nyquist phase is not exactly 0 or +pi")
+            gate(torch.equal(only, amp), f"K1 {n} {window}: amplitude-only differs")
+            k1_all[(n, window)] = (s_ref, s_steps)
+    say(f"[3] K1 [{ALL_BATCH}, n] at every n, Hann and rect: SNR vs f64 (gate >= {GATE_DB}) / "
+        f"vs its step-by-step version in float64 (gate >= {STEPS_GATE_DB}): "
+        + ", ".join(f"{n} {w} {a:.1f}/{b:.1f}" for (n, w), (a, b) in k1_all.items())
+        + "; edge phases exactly 0 or +pi; amplitude-only equal")
+
     # 4. K2 against float64, its roundtrip and its plain version
     k2 = {}
     for batch, n in K2_SHAPES:
@@ -300,6 +356,29 @@ def main() -> int:
         gate(np.array_equal(kz, np.stack([got.real, got.imag])),
              f"K2 {n}: dispatch.fft differs from the kernel")
         k2[(batch, n)] = dict(re=re, im=im, err=err)
+    k2_all = {}
+    for n in K2_ALL_N:
+        rng = np.random.default_rng(SEED + n)
+        re = cuda(rng.standard_normal((ALL_BATCH, n)).astype(np.float32))
+        im = cuda(rng.standard_normal((ALL_BATCH, n)).astype(np.float32))
+        zf = host(re).astype(np.float64) + 1j * host(im)
+        need = SMALL_N_GATE_DB if n <= 128 else GATE_DB
+        for inverse, oracle in ((False, np.fft.fft), (True, np.fft.ifft)):
+            got = fft_cuda.fft_rows_cuda(re, im, inverse)
+            steps = fft_cuda.fft_rows_steps(re.double(), im.double(), inverse)
+            torch.cuda.synchronize()
+            s_ref = csnr_db(oracle(zf, axis=-1), host(got[0]), host(got[1]))
+            s_steps = dev_snr_db(steps, got)
+            gate(s_ref >= need, f"K2 {n} inverse={inverse}: SNR vs f64 {s_ref:.1f} dB")
+            gate(s_steps >= STEPS_GATE_DB,
+                 f"K2 {n} inverse={inverse}: vs steps {s_steps:.1f} dB")
+            k2_all[(n, inverse)] = (s_ref, s_steps)
+    say(f"[4] K2 [{ALL_BATCH}, n] at every plan, forward/inverse: SNR vs f64 (gate >= "
+        f"{SMALL_N_GATE_DB} to n = 128, {GATE_DB} above) and vs its step-by-step version "
+        f"in float64 (gate >= {STEPS_GATE_DB}): "
+        + ", ".join(f"{n} {k2_all[(n, False)][0]:.1f}/{k2_all[(n, True)][0]:.1f} "
+                    f"(steps {min(k2_all[(n, False)][1], k2_all[(n, True)][1]):.1f})"
+                    for n in K2_ALL_N))
     # donate, other axes, bf16 and the uncovered range, at small sizes
     re, im = k2[MAIN]["re"][:64], k2[MAIN]["im"][:64]
     a = fft_cuda.fft_rows_cuda(re, im)
@@ -316,12 +395,18 @@ def main() -> int:
          "bf16 dispatch is not the f32 kernel cast back")
     say("[4] K2 donate in place, axis-0 and bf16 dispatch: ok (n > 16384: phase 15)")
 
-    # 5. the main path, counted
+    # 5. the main path, counted. spectrum() gets a numpy array and entry()
+    # no device: host input goes to the card, never to the plain versions.
     xd = k1[MAIN]["x"]
-    step, (flag_batch,) = entry(dev)
+    x_host = bench_input(*MAIN)
     for key in fft_cuda.LAUNCHES:
         fft_cuda.LAUNCHES[key] = 0
-    r = spectrum(xd, sample_rate=SR, window="hann")
+    step, (flag_batch,) = entry()
+    r = spectrum(x_host, sample_rate=SR, window="hann")
+    gate(r.amplitude.is_cuda and r.phase.is_cuda and r.peak.index.is_cuda
+         and r.frequencies.is_cuda and fft_cuda.LAUNCHES["spectrum_onesided"] == 1,
+         "spectrum(numpy array) did not run on the card")
+    gate(flag_batch.is_cuda, "entry() with no device named is not on the card")
     f_amp, f_idx, f_freq, _ = step(xd)
     e_amp, e_idx, e_freq, _ = step(flag_batch)
     torch.cuda.synchronize()
@@ -329,6 +414,7 @@ def main() -> int:
     say(f"[5] launches during the main path: {launches}")
     gate(launches["spectrum_onesided"] == 1, "spectrum() did not launch K1 exactly once")
     gate(launches["fft_rows"] == 2, "the flagship steps did not launch K2 once each")
+    gate(e_amp.is_cuda and e_idx.is_cuda, "entry()'s step did not run on the card")
     amp = host(r.amplitude)
     gate(amp.shape == (MAIN[0], MAIN[1] // 2 + 1) and np.isfinite(amp).all()
          and np.isfinite(host(r.phase)).all(), "spectrum(): bad shape or non-finite")
@@ -349,14 +435,19 @@ def main() -> int:
     gate(s_entry >= GATE_DB and int(e_idx[0]) == 32 and float(e_freq[0]) == 1500.0
          and int(e_idx[3]) == 0 and float(e_amp[3].abs().max()) == 0.0,
          f"flagship entry batch: SNR {s_entry:.1f} dB or wrong peaks {host(e_idx)}")
+    say("[5] host input: spectrum(numpy array) and entry() with no device named ran on "
+        f"{r.amplitude.device} and launched K1 and K2")
     say(f"[5] spectrum() {list(MAIN)}: peak bin 32 at 1500.0 Hz in every row, "
         f"SNR vs f64 {s_main:.1f} dB; flagship step vs spectrum() {s_flag:.1f} dB; "
         f"entry batch vs f64 {s_entry:.1f} dB, peaks {host(e_idx).tolist()}")
 
     # 6. times: median over runs of `inner` back-to-back calls, CUDA events
-    def timed(fn, runs=11, inner=5, before=None):
+    def timed(fn, runs=11, inner=5, before=None, queued=False):
         """``before`` runs ahead of each timed window (it refills a buffer
-        that ``fn`` transforms in place, so the values stay finite)."""
+        that ``fn`` transforms in place, so the values stay finite).
+        ``queued`` puts a device spin ahead of the window, so that the host
+        has enqueued every launch before the first one runs: the device's
+        own time of a call too short to hide the host's launch work."""
         fn()
         torch.cuda.synchronize()
         per = []
@@ -364,6 +455,8 @@ def main() -> int:
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             if before is not None:
                 before()
+            if queued:
+                torch.cuda._sleep(SPIN_CYCLES)
             a.record()
             for _ in range(inner):
                 fn()
@@ -386,9 +479,14 @@ def main() -> int:
         ms = timed(lambda: fft_cuda.fft_rows_cuda(re, im))
         pms = timed(lambda: fft_cuda.fft_rows_plain(re, im))
         times[("fft_rows", batch, n)] = (ms, pms)
+        qms = timed(lambda: fft_cuda.fft_rows_cuda(re, im), queued=True)
         say(f"[6] K2 forward [{batch}, {n}] on {name} ({card}): kernel {ms:.4f} ms "
-            f"({batch * n / ms / 1e3:.0f} Msamples/s), plain {pms:.4f} ms "
-            f"({batch * n / pms / 1e3:.0f} Msamples/s)")
+            f"({batch * n / ms / 1e3:.0f} Msamples/s; {qms:.4f} ms queued behind a device "
+            f"spin), plain {pms:.4f} ms ({batch * n / pms / 1e3:.0f} Msamples/s)")
+    path_ms = {"spectrum()": timed(lambda: spectrum(xd, sample_rate=SR, window="hann")),
+               "flagship step": timed(lambda: step(xd))}
+    say(f"[6] end to end {list(MAIN)} on {name} ({card}), pipelined (5 calls a window): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in path_ms.items()))
 
     # 7. config 2: the spectrogram routes against float64 numpy
     sig = config2_signal()
@@ -459,6 +557,33 @@ def main() -> int:
         f"(bin {bin_hz:.2f} Hz); stft->istft interior {s_rt:.1f} dB; "
         f"stft_step x10 == stft on 450 frames")
 
+    k4_all = {}
+    for n in K1_ALL_N:
+        for hop in sorted({128, max(128, n // 4), n}):     # hop is a multiple of 128
+            length = n + (K4_ALL_FRAMES - 1) * hop + 17      # 7 frames, a dropped tail
+            sig_n = torch.randn((3, length), device=dev,
+                                generator=torch.Generator(device=dev).manual_seed(SEED + n + hop))
+            a4, p4 = fft_cuda.framed_spectrum_amp_phase_cuda(sig_n, n, hop, "hann")
+            a1, p1 = fft_cuda.spectrum_amp_phase_cuda(
+                frame_signal(sig_n, n, hop).contiguous(), n, "hann")
+            sa, _ = fft_cuda.framed_spectrum_amp_phase_steps(sig_n.double(), n, hop, "hann")
+            gate(a4.shape == (3, K4_ALL_FRAMES, n // 2 + 1)
+                 and torch.equal(a4, a1) and torch.equal(p4, p1),
+                 f"K4 n={n} hop={hop}: differs from K1 on the materialised frames")
+            k4_all[(n, hop)] = dev_snr_db((sa,), (a4,))
+            gate(k4_all[(n, hop)] >= STEPS_GATE_DB,
+                 f"K4 n={n} hop={hop}: vs steps {k4_all[(n, hop)]:.1f} dB")
+    odd = xs[1:C2_N + 3 * C2_HOP + 1]      # a signal that starts on an odd word
+    gate(torch.equal(fft_cuda.framed_spectrum_amp_phase_cuda(odd, C2_N, C2_HOP, "hann")[0],
+                     fft_cuda.framed_spectrum_amp_phase_cuda(odd.clone(), C2_N, C2_HOP,
+                                                             "hann")[0]),
+         "K4 on a signal that is not 8-byte aligned differs from its aligned copy")
+    say(f"[7] K4 == K1 (bit-equal, amp and phase) at every n with hop 128, n/4, n, "
+        f"{K4_ALL_FRAMES} frames x 3 signals; K4 vs its step-by-step version in float64 "
+        f"(gate >= {STEPS_GATE_DB}): "
+        + ", ".join(f"{n}/{hop} {v:.1f}" for (n, hop), v in k4_all.items())
+        + "; an unaligned signal equals its aligned copy")
+
     # 8. K3 at small n against float64 and its plain version
     k3 = {}
     for batch, n, sides in K3_SHAPES:
@@ -487,16 +612,6 @@ def main() -> int:
         fn()
         torch.cuda.synchronize()
         return dict(fft_cuda.LAUNCHES)
-
-    def dev_snr_db(refs, gots) -> float:
-        """snr_db over planes that stay on the card, in float64: for inputs
-        too large to copy back."""
-        power = err = 0.0
-        for ref, got in zip(refs, gots):
-            ref, got = ref.double(), got.double()
-            power += float((ref * ref).sum())
-            err += float(((got - ref) ** 2).sum())
-        return float("inf") if err == 0.0 else 10 * np.log10(power / err)
 
     path_launches = {}
     for label, fn, kname in (
@@ -1011,8 +1126,7 @@ def main() -> int:
          f"spectrum() 2^20: peak {int(r.peak.index)} at {float(r.peak.frequency)} Hz, "
          f"amplitude {float(r.peak.amplitude)}")
     gate(s_big >= GATE_DB, f"spectrum() 2^20: SNR vs f64 {s_big:.1f} dB")
-    gate(float(r.phase[0]) in (0.0, float(np.float32(np.pi)))
-         and float(r.phase[-1]) in (0.0, float(np.float32(np.pi))),
+    gate(float(r.phase[0]) in (0.0, f32_pi) and float(r.phase[-1]) in (0.0, f32_pi),
          "spectrum() 2^20: DC or Nyquist phase is not exactly 0 or pi")
     say(f"[16] spectrum() of one {BIG_N}-point Hann frame: peak bin {int(r.peak.index)} "
         f"at {float(r.peak.frequency)} Hz, amplitude {float(r.peak.amplitude):.6f} "
@@ -1173,6 +1287,11 @@ def main() -> int:
         """Radix-2: n/2 butterflies a stage of 10 real operations each."""
         return 5.0 * n * np.log2(n)
 
+    def real_fft_flops(n: int) -> float:
+        """A real n-point transform: half a complex one's butterflies, and
+        12 real operations for each of the n/2 untangled bins."""
+        return 2.5 * n * np.log2(n) + 12.0 * (n // 2)
+
     # Bytes: every input read once, every output written once, float32.
     # Operations: the transforms' butterflies plus the elementwise work.
     b1, n1 = MAIN                                     # K1 amp + phase; K2
@@ -1183,13 +1302,13 @@ def main() -> int:
     bounds = {
         "spectrum_onesided": bound(
             4 * b1 * n1 + 8 * b1 * (n1 // 2 + 1) + 12 * n1,
-            b1 * (fft_flops(n1) + n1 + 6 * (n1 // 2 + 1))),
+            b1 * (real_fft_flops(n1) + n1 + 6 * (n1 // 2 + 1))),
         "fft_rows": bound(16 * b1 * n1 + 8 * n1, b1 * fft_flops(n1)),
         "spectrum_twosided": bound(8 * rows3 * C2_N + 12 * C2_N,
                                    rows3 * (fft_flops(C2_N) + 6 * C2_N)),
         "stft_onesided": bound(
             4 * C2_CHANNELS * C2_LEN + 4 * rows3 * (C2_N // 2 + 1) + 12 * C2_N,
-            rows3 * (fft_flops(C2_N) + C2_N + 5 * (C2_N // 2 + 1))),
+            rows3 * (real_fft_flops(C2_N) + C2_N + 5 * (C2_N // 2 + 1))),
         "osconv": bound(8 * n_fir + 16 * n_fir, 2 * fft_flops(n_fir) + 7 * n_fir),
         "osconv_pair": bound(8 * nb * C2_CHANNELS * n_fir + 16 * n_fir,
                              pairs * (2 * fft_flops(n_fir) + 8 * n_fir)),

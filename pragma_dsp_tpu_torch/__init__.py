@@ -10,10 +10,16 @@ is ported (see PORT.md).
 * power     — ``pragma_dsp_tpu_torch.xform``, ``.math``, ``.fluent``
 * expert    — ``pragma_dsp_tpu_torch.core``
 * streaming — ``pragma_dsp_tpu_torch.stream``
+
+Host input (numpy arrays, lists, ``device=None``) goes to
+:func:`default_device`, the current CUDA device; a tensor stays where it
+is. ``set_default_device("cpu")`` or a CPU tensor asks for the CPU.
 """
 
+from .core.device import default_device, set_default_device
 from .public import SpectrumPeak, SpectrumResult, spectrum
 
 __version__ = "0.1.0"
 
-__all__ = ["spectrum", "SpectrumPeak", "SpectrumResult", "__version__"]
+__all__ = ["spectrum", "SpectrumPeak", "SpectrumResult", "default_device",
+           "set_default_device", "__version__"]

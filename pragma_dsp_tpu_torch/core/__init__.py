@@ -8,6 +8,7 @@ from .complex import (
     is_power_of_two,
     next_power_of_two,
 )
+from .device import default_device, resolve_device, set_default_device, to_tensor
 from .fft import Radix2Fft, fft, fft_axis0, ifft
 
 __all__ = [
@@ -17,6 +18,10 @@ __all__ = [
     "ensure_float",
     "is_power_of_two",
     "next_power_of_two",
+    "default_device",
+    "set_default_device",
+    "resolve_device",
+    "to_tensor",
     "Radix2Fft",
     "fft",
     "fft_axis0",

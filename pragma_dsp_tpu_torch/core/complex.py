@@ -3,8 +3,9 @@
 Counterpart of ``pragma_dsp_tpu/core/complex.py``. A complex array is two
 real tensors of one shape, never a ``torch.complex`` tensor: that is the
 layout the CUDA kernels read. Arbitrary leading batch dimensions are
-allowed; the complex-element axis is the last one. The tensor's device is
-the only thing that decides where work runs.
+allowed; the complex-element axis is the last one. A tensor's device
+decides where work runs; host input goes to the default device
+(``core/device.py``).
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from .device import resolve_device, to_tensor
 
 __all__ = [
     "ComplexArray",
@@ -91,6 +94,7 @@ class ComplexArray(_ComplexArrayFields):
     @staticmethod
     def from_numpy_complex(x, dtype=None, device=None) -> "ComplexArray":
         x = np.asarray(x)
+        device = resolve_device(device)
         re = torch.as_tensor(np.ascontiguousarray(x.real), dtype=dtype, device=device)
         im = torch.as_tensor(np.ascontiguousarray(x.imag), dtype=dtype, device=device)
         return ComplexArray(re, im)
@@ -101,7 +105,7 @@ def create_complex_array(size, fill: float = 0.0, dtype=torch.float32,
     """Allocate a complex array of ``size`` (int or shape tuple) filled with
     ``fill`` in both planes (reference createComplexArray)."""
     shape = (size,) if isinstance(size, int) else tuple(size)
-    re = torch.full(shape, fill, dtype=dtype, device=device)
+    re = torch.full(shape, fill, dtype=dtype, device=resolve_device(device))
     return ComplexArray(re, re.clone())
 
 
@@ -122,7 +126,7 @@ def as_complex_array(x, dtype=None) -> ComplexArray:
 
     def plane(a):
         # A complex plane passes through so the constructor rejects it.
-        return ensure_float(torch.as_tensor(a, dtype=dtype))
+        return ensure_float(to_tensor(a, dtype))
 
     if isinstance(x, tuple) and len(x) == 2 and not isinstance(x[0], (int, float)):
         return ComplexArray(plane(x[0]), plane(x[1]))
@@ -142,7 +146,7 @@ def ensure_float(x) -> torch.Tensor:
     """Coerce int/bool input to the default float dtype; floating and
     complex tensors pass through unchanged (complex input keeps flowing to
     the caller's own complex handling)."""
-    t = torch.as_tensor(x)
+    t = to_tensor(x)
     if not t.is_floating_point() and not t.is_complex():
         t = t.to(torch.get_default_dtype())
     return t

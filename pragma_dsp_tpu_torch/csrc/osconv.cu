@@ -22,7 +22,7 @@
 //
 // What bounds it on an H100: a frame is read once and written once (8 bytes
 // per real sample), so the HBM floor is small; the 2*log2(n) shared-memory
-// radix-2 passes, each ended by a block barrier, set the time, as in K2.
+// radix-2 passes, each ended by a block barrier, set the time.
 //
 // donate: out may alias in. Each block reads its rows into shared memory
 // before its first store, and blocks own disjoint rows, so in place is safe.

@@ -1,4 +1,5 @@
-// Shared-memory radix-2 FFT core used by the row kernels (K1, K2, K3, K4).
+// Shared-memory radix-2 FFT core of K3, K5a/K5b, K6 and K7 (K1, K2 and K4
+// run the register core of fft_regs.cuh).
 //
 // A thread block owns one row (or, at small n, a few rows stored back to
 // back). A row lives in shared memory as two f32 planes (re, im) of n

@@ -17,8 +17,9 @@
 //
 // What bounds it on an H100: at [16384, 128] it reads 8 MiB and writes
 // 8 MiB, a floor of a few microseconds, so launch and barrier latency set
-// its time; at config 2 ([59520, 4096] frames) it is K1's shared-memory
-// radix-2 work with twice K1's output bytes.
+// its time; at config 2 ([59520, 4096] frames) the log2(n) shared-memory
+// radix-2 passes of a complex transform of the real frame set it (K1's
+// register core and packed real transform are not used here yet).
 #include "radix2.cuh"
 
 namespace {

@@ -9,6 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .core.device import resolve_device
 from .ops.dispatch import fft as _fft
 from .public.spectrum import find_peak, scale_amplitude_one_sided
 from .xform.fourier import bin_frequencies, create_window, magnitude
@@ -16,9 +17,11 @@ from .xform.fourier import bin_frequencies, create_window, magnitude
 __all__ = ["entry"]
 
 
-def entry(device="cpu"):
-    """(step, example_args) on ``device``: the same step and the same
-    four-row batch (sine at bin 32, noise, ones, zeros) as the JAX entry."""
+def entry(device=None):
+    """(step, example_args) on ``device`` (None: the default device, the
+    card): the same step and the same four-row batch (sine at bin 32, noise,
+    ones, zeros) as the JAX entry."""
+    device = resolve_device(device)
     n = 1024
     sample_rate = 48000.0
     win = create_window("hann", n, device=device)

@@ -31,14 +31,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # in_re, in_im, out_re, out_im, twc, tws, batch, n, inverse, stream
-    "fft_rows_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # x, win, amp, ph (nullable), twc, tws, batch, n, stream
-    "spectrum_onesided_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # in_re, in_im, out_re, out_im, pass table, plan, batch, n, inverse, stream
+    "fft_rows_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, win, amp, ph (nullable), twc, tws, pass table, plan, batch, n, stream
+    "spectrum_onesided_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # x, win, amp, cos, sin, batch, n, stream
     "spectrum_twosided_f32": [_P, _P, _P, _P, _P, _I, _I, _P],
-    # x, win, amp, ph (nullable), twc, tws, batch, length, n, hop, stream
-    "stft_onesided_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, win, amp, ph (nullable), twc, tws, pass table, plan, batch, length,
+    # n, hop, stream
+    "stft_onesided_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # in, out, hre, him, twc, tws, batch, n, pair, stream
     "osconv_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # xre, xim, ore, oim, hp, twc, tws, frames, m_frames, c, t_taps, stream

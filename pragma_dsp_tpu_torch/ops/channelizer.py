@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..core.complex import ComplexArray, as_complex_array, is_power_of_two
+from ..core.device import resolve_device
 from .dispatch import fft as _fft, get_fft_impl
 from .fft_cuda import MAX_ROWS_N
 from .pfb_cuda import (MIN_CHANNELS, branch_filter_plain,
@@ -68,7 +69,7 @@ def _channelize_frames(xc: ComplexArray, taps, channels: int,
     the cross-branch analysis DFT (forward, unnormalised) via dispatch."""
     if _use_kernel(xc.real.device.type, xc.real.dtype, channels):
         return pfb_channelize_frames_cuda(xc, taps, channels, precision=precision)
-    hp, _ = pfb_tap_table(taps, channels)
+    hp, _ = pfb_tap_table(taps, channels, xc.real.device)
     vr, vi = branch_filter_plain(xc.real, xc.imag, hp)
     return _fft(ComplexArray(vr, vi), axis=-1, precision=precision)
 
@@ -127,14 +128,15 @@ def pfb_stream_init(channels: int, taps_per_branch: int = 8,
                     batch_shape: Tuple[int, ...] = (),
                     dtype=torch.float32, device=None) -> PfbState:
     n = (taps_per_branch - 1) * channels
-    z = torch.zeros(tuple(batch_shape) + (n,), dtype=dtype, device=device)
+    z = torch.zeros(tuple(batch_shape) + (n,), dtype=dtype,
+                    device=resolve_device(device))
     return PfbState(tail_re=z, tail_im=z.clone())
 
 
 def _taps_count(taps, channels: int, taps_per_branch: int):
     if taps is None:
         taps = pfb_taps(channels, taps_per_branch)
-    return taps, -(-int(torch.as_tensor(taps).shape[0]) // channels)
+    return taps, -(-len(taps) // channels)
 
 
 def pfb_channelize_step(state: PfbState, chunk, channels: int, taps=None,
@@ -168,7 +170,7 @@ def pfb_frames_stream_init(channels: int, taps_per_branch: int = 8,
                            batch_shape: Tuple[int, ...] = (),
                            dtype=torch.float32, device=None) -> PfbFramesState:
     z = torch.zeros(tuple(batch_shape) + (taps_per_branch - 1, channels),
-                    dtype=dtype, device=device)
+                    dtype=dtype, device=resolve_device(device))
     return PfbFramesState(tail_re=z, tail_im=z.clone())
 
 

@@ -26,6 +26,7 @@ from typing import Optional
 import torch
 
 from ..core.complex import ComplexArray, is_power_of_two
+from ..core.device import to_tensor
 from ..core.fft import fft_axis0
 from . import _build
 from .fft_cuda import LAUNCHES, MAX_DFT_N, MAX_ROWS_N, _device_tables, resolve_precision
@@ -98,7 +99,7 @@ def circular_convolve_cuda(frames, hspec: ComplexArray, n: int,
     kernel. A CPU tensor runs :func:`circular_convolve_plain`.
     """
     resolve_precision(precision)
-    frames = torch.as_tensor(frames)
+    frames = to_tensor(frames)
     if frames.shape[-1] != n:
         raise ValueError(f"frame length {frames.shape[-1]} != n {n}")
     if n <= MAX_DFT_N or not is_power_of_two(n):

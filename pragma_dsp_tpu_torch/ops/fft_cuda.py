@@ -5,9 +5,13 @@ Counterpart of ``pragma_dsp_tpu/ops/fft_pallas.py``:
 
 * K1 ``spectrum_onesided`` (``csrc/spectrum_onesided.cu``) replaces
   ``_spectrum_onesided_kernel`` + ``_onesided_body``: window -> FFT ->
-  one-sided scaled amplitude, optionally phase, natural bin order.
+  one-sided scaled amplitude, optionally phase, natural bin order. The
+  real frame is packed into n/2 complex points and untangled
+  (``csrc/onesided.cuh``).
 * K2 ``fft_rows`` (``csrc/fft_rows.cu``) replaces ``_fft2d_kernel``: a
-  batched complex FFT over the last axis, natural order in and out.
+  batched complex FFT over the last axis, natural order in and out, by the
+  register-resident mixed-radix core (``csrc/fft_regs.cuh``) that K1 and
+  K4 share; :func:`radix_plan` is its plan.
 * K3 ``spectrum_twosided`` (``csrc/spectrum_twosided.cu``) replaces
   ``_spectrum_kernel``: window -> DFT -> |X|/n over all n bins, for any
   n <= 128 and power-of-two n above; it serves ``sides="two"`` and the
@@ -21,11 +25,15 @@ Counterpart of ``pragma_dsp_tpu/ops/fft_pallas.py``:
   (forward) or the input (inverse). It is stage 1 of the large FFT
   (``ops/fft_big.py``) and the axis -2 route of ``ops.dispatch``.
 
-K1, K3 and K4 hold a whole frame in one block's shared memory, which ends
-at n = 16384. A longer CUDA frame takes the route the JAX package takes in
+K1, K3 and K4 hold a whole frame in one block, which ends at n = 16384. A longer CUDA frame takes the route the JAX package takes in
 effect: window -> ``ops.dispatch.fft`` (the large FFT, K7 then K2) -> |X|,
 phase and scaling in PyTorch, with DC and Nyquist made real as K1 makes
 them.
+
+``fft_rows_steps`` and ``spectrum_amp_phase_steps`` repeat the register
+core's arithmetic step by step in PyTorch (thread, register and
+shared-memory address included): the tests hold them against the JAX
+package here and the kernels against them on the card.
 
 Each wrapper takes its plain version only because the tensor it was given
 lies on the CPU. For a CUDA tensor it launches its kernel or raises; there
@@ -47,6 +55,7 @@ import numpy as np
 import torch
 
 from ..core.complex import is_power_of_two, next_power_of_two
+from ..core.device import to_tensor
 from ..core.fft import fft_axis0
 from ..xform.fourier import create_window, window_values
 from . import _build
@@ -69,6 +78,13 @@ __all__ = [
     "framed_spectrum_amp_phase_plain",
     "fft_rows_cuda",
     "fft_rows_plain",
+    "fft_rows_steps",
+    "radix_plan",
+    "points_per_thread",
+    "pass_twiddles",
+    "exchange_pad",
+    "spectrum_amp_phase_steps",
+    "framed_spectrum_amp_phase_steps",
     "fft_cols_cuda",
     "fft_cols_plain",
 ]
@@ -83,6 +99,8 @@ MAX_COLS_N = 4096
 # dense-DFT route does (fft_pallas.py:1638-1641); above it, n must be a
 # power of two, and one-sided spectra go to K1.
 MAX_DFT_N = 128
+# The widest butterfly a thread of the register core does in one pass.
+MAX_RADIX = 16
 # The framed kernel's hop contract, kept exactly as the JAX predicate
 # (fft_pallas.py:1404-1409). It comes from the TPU's 128-lane tile; K4
 # could take any hop, but the port does not widen the public contract.
@@ -126,9 +144,11 @@ def _dft64(n: int) -> Tuple[np.ndarray, np.ndarray]:
 
 
 def dft_table(n: int) -> Tuple[np.ndarray, np.ndarray]:
-    """The n-entry table every kernel reads, rounded once to f32. K3's
-    direct DFT indexes all of it by (k*j) mod n; the radix-2 core reads the
-    first n/2 entries, bit-equal to the Stockham twiddles of size n."""
+    """The n-entry table every kernel's twiddles come from, rounded once to
+    f32. K3's direct DFT indexes all of it by (k*j) mod n; the radix-2 core
+    (K3, K5-K7) reads the first n/2 entries, bit-equal to the Stockham
+    twiddles of size n; K1 and K4 read W_n^k, k < n/2, in the untangle;
+    :func:`pass_twiddles` gathers the register core's passes from it."""
     c, s = _dft64(n)
     return c.astype(np.float32), s.astype(np.float32)
 
@@ -150,6 +170,252 @@ def _dft_matrices(n: int, dtype: torch.dtype, device: torch.device):
     idx = np.outer(np.arange(n), np.arange(n)) % n
     return tuple(torch.from_numpy(t[idx]).to(device=device, dtype=dtype)
                  for t in _dft64(n))
+
+
+# ── the register core: plan, pass tables, and its steps in PyTorch ───
+
+
+def radix_plan(n: int) -> Tuple[int, ...]:
+    """The radices of the self-sorting passes of an n-point transform
+    (``csrc/fft_regs.cuh``), first pass first; their product is n, and
+    none is wider than :func:`points_per_thread`. Passes of that width as
+    long as it divides what is left, then the remainder: 1024 is
+    (16, 16, 4), 4096 (16, 16, 16), 16384 (16, 16, 16, 4). The first pass
+    multiplies by no twiddles, so it is a wide one; but below 512 points,
+    where several rows share a warp and the exchange is not conflict-free
+    either way, the remainder goes first (128 is (8, 16), which read faster
+    on an H100 than (16, 8)). n < 16 is one pass of radix n; n = 1 has
+    none."""
+    if not is_power_of_two(n):
+        raise ValueError(f"FFT size must be power of two, got {n}")
+    width, left, plan = points_per_thread(n), n, []
+    while left > 1:
+        plan.append(min(left, width))
+        left //= plan[-1]
+    return tuple(plan[::-1] if n < 512 else plan)
+
+
+def points_per_thread(n: int) -> int:
+    """Complex points a thread of the register core holds, which is also
+    its widest radix: 16 (64 registers, so that even the 1024 threads of a
+    16384-point row fit an SM); 4 from 16 to 64 points, so that a row
+    still has 4 to 16 threads; the whole row below that. ``RowShape`` in
+    csrc/fft_regs.cuh has the same rule."""
+    return n if n < 16 else (4 if n < 128 else MAX_RADIX)
+
+
+def plan_code(plan: Tuple[int, ...]) -> int:
+    """The plan as the C launchers take it: log2 of pass p's radix in
+    nibble p. The kernels are instantiated per size with these same codes
+    (``FFT_PLANS`` in csrc/fft_regs.cuh) and refuse another."""
+    return sum((r.bit_length() - 1) << (4 * p) for p, r in enumerate(plan))
+
+
+@functools.lru_cache(maxsize=32)
+def _plan_code_of(n: int) -> int:
+    return plan_code(radix_plan(n))
+
+
+def pass_twiddles(n: int, dtype=np.float32) -> np.ndarray:
+    """The twiddles of :func:`radix_plan`'s passes, laid out as the kernel
+    reads them: for each pass after the first (radix r, Ns = the product of
+    the radices before it), (r - 1) * Ns pairs (cos, sin) of W_n^(t * k *
+    n / (Ns * r)) at [(t - 1) * Ns + k], t = 1..r-1, k < Ns, so that the
+    lanes of a warp (consecutive k) read consecutive pairs. The values are
+    entries of the one float64 table of :func:`dft_table`, rounded once.
+    Shape [L, 2], L >= 1 (a one-pass plan reads none)."""
+    c, s = _dft64(n)
+    rows = [np.zeros((1, 2))] if len(radix_plan(n)) < 2 else []
+    ns = 1
+    for r in radix_plan(n):
+        if ns > 1:
+            idx = (np.arange(1, r)[:, None] * np.arange(ns)[None, :]
+                   * (n // (ns * r))).reshape(-1)
+            rows.append(np.stack([c[idx], s[idx]], axis=-1))
+        ns *= r
+    return np.concatenate(rows).astype(dtype)
+
+
+@functools.lru_cache(maxsize=32)
+def _device_pass_twiddles(n: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(pass_twiddles(n)).to(device)
+
+
+def exchange_pad(a):
+    """Where word ``a`` of a row lies in the shared-memory exchange: one
+    spare word after every 32. A pass's loads (consecutive words) and the
+    first pass's stores (stride 16) touch 32 different banks; the second
+    pass's stores (two runs of 16 words) are a 2-way conflict."""
+    return a + (a >> 5)
+
+
+def _w16(e: int, dtype: torch.dtype) -> Tuple[float, float]:
+    """(cos, sin) of -2*pi*e/16, rounded once from float64 to ``dtype``."""
+    w = np.exp(-2j * np.pi * e / 16)
+    cast = np.float32 if dtype == torch.float32 else np.float64
+    return float(cast(w.real)), float(cast(w.imag))
+
+
+def _bit_reverse(t: int, bits: int) -> int:
+    return int(format(t, f"0{bits}b")[::-1], 2) if bits else 0
+
+
+def _butterflies_steps(xr: list, xi: list, radix: int) -> None:
+    """R/radix in-register DFTs of ``radix`` points, on registers
+    u + t*M (M = R/radix): decimation-in-frequency radix-2 stages with the
+    constants W_16^e, then the bit-reversed positions renamed to natural
+    order, as ``butterflies`` of fft_regs.cuh does."""
+    m = len(xr) // radix
+    bits = radix.bit_length() - 1
+    dtype = xr[0].dtype
+    for u in range(m):
+        for stage in range(bits):
+            h = (radix // 2) >> stage
+            for t in range(radix):
+                if t & h:
+                    continue
+                a, b = u + t * m, u + (t + h) * m
+                dr, di = xr[a] - xr[b], xi[a] - xi[b]
+                xr[a], xi[a] = xr[a] + xr[b], xi[a] + xi[b]
+                e = (t & (h - 1)) * (8 // h)
+                if e == 0:
+                    xr[b], xi[b] = dr, di
+                elif e == 4:                       # times -i
+                    xr[b], xi[b] = di, -dr
+                else:
+                    c, s = _w16(e, dtype)
+                    xr[b], xi[b] = dr * c - di * s, dr * s + di * c
+        nat = [(xr[u + _bit_reverse(t, bits) * m], xi[u + _bit_reverse(t, bits) * m])
+               for t in range(radix)]
+        for t in range(radix):
+            xr[u + t * m], xi[u + t * m] = nat[t]
+
+
+def _fft_regs_steps(xr: list, xi: list, n: int, tw: torch.Tensor) -> None:
+    """The register core on R = len(xr) registers of [B, T] lanes
+    (T = n/R threads a row; register q of thread tid holds point
+    tid + T*q, before and after): the passes of :func:`radix_plan`, each a
+    twiddle multiply, the in-register butterflies and, but for the last,
+    one exchange through a padded row of shared memory."""
+    regs = len(xr)
+    lanes = n // regs
+    tid = torch.arange(lanes, device=xr[0].device)
+    plan = radix_plan(n)
+    ns, off = 1, 0
+    for p, r in enumerate(plan):
+        m = regs // r
+        if ns > 1:
+            for u in range(m):
+                k = (tid + u * lanes) & (ns - 1)
+                for t in range(1, r):
+                    c, s = tw[off + (t - 1) * ns + k].unbind(-1)
+                    q = u + t * m
+                    xr[q], xi[q] = xr[q] * c - xi[q] * s, xr[q] * s + xi[q] * c
+            off += (r - 1) * ns
+        _butterflies_steps(xr, xi, r)
+        if p + 1 < len(plan):
+            sre = torch.empty(xr[0].shape[:-1] + (exchange_pad(n),), dtype=xr[0].dtype,
+                              device=xr[0].device)
+            sim = torch.empty_like(sre)
+            for u in range(m):
+                j = tid + u * lanes
+                base = (j // ns) * ns * r + (j & (ns - 1))
+                for t in range(r):
+                    a = exchange_pad(base + t * ns)
+                    sre[..., a], sim[..., a] = xr[u + t * m], xi[u + t * m]
+            for q in range(regs):
+                a = exchange_pad(tid + lanes * q)
+                xr[q], xi[q] = sre[..., a], sim[..., a]
+        ns *= r
+
+
+def fft_rows_steps(re: torch.Tensor, im: torch.Tensor, inverse: bool = False
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2's arithmetic step by step in PyTorch, for the tests: what
+    ``csrc/fft_rows.cu`` does to [B, n] planes, thread index, register
+    number and shared-memory address included. The inverse is the forward
+    transform of the swapped planes, swapped back and scaled by 1/n."""
+    n = re.shape[-1]
+    if n == 1:
+        return re.clone(), im.clone()
+    if inverse:
+        re, im = im, re
+    regs = points_per_thread(n)
+    lanes = n // regs
+    tid = torch.arange(lanes, device=re.device)
+    xr = [re[..., tid + lanes * q] for q in range(regs)]
+    xi = [im[..., tid + lanes * q] for q in range(regs)]
+    tw = torch.from_numpy(pass_twiddles(
+        n, np.float32 if re.dtype == torch.float32 else np.float64)).to(re)
+    _fft_regs_steps(xr, xi, n, tw)
+    scale = 1.0 / n if inverse else 1.0
+    ore, oim = torch.empty_like(re), torch.empty_like(im)
+    for q in range(regs):
+        ore[..., tid + lanes * q] = xr[q] * scale
+        oim[..., tid + lanes * q] = xi[q] * scale
+    return (oim, ore) if inverse else (ore, oim)
+
+
+def spectrum_amp_phase_steps(x: torch.Tensor, n: int, window: str,
+                             with_phase: bool = True, parts: bool = False):
+    """K1's and K4's per-frame arithmetic step by step in PyTorch, for the
+    tests (``csrc/onesided.cuh``): the windowed real frame [B, n] packed as
+    z[j] = xw[2j] + i*xw[2j+1], the register core at n/2 points, then the
+    untangle 2X[k] = (Z[k] + conj Z[n/2-k]) - i*W_n^k*(Z[k] - conj Z[n/2-k])
+    scaled by 1/n; DC = Re Z[0] + Im Z[0] and Nyquist = Re Z[0] - Im Z[0]
+    with imaginary part +0.0. ``parts=True`` returns the unscaled bins
+    (re, im) of X instead of (amplitude, phase)."""
+    half = n // 2
+    regs = points_per_thread(half)
+    lanes = half // regs
+    tid = torch.arange(lanes, device=x.device)
+    xw = x * create_window(window, n, dtype=x.dtype, device=x.device)
+    xr = [xw[..., 2 * (tid + lanes * q)] for q in range(regs)]
+    xi = [xw[..., 2 * (tid + lanes * q) + 1] for q in range(regs)]
+    cast = np.float32 if x.dtype == torch.float32 else np.float64
+    _fft_regs_steps(xr, xi, half, torch.from_numpy(pass_twiddles(half, cast)).to(x))
+    zr = torch.empty(x.shape[:-1] + (exchange_pad(half),), dtype=x.dtype,
+                     device=x.device)
+    zi = torch.empty_like(zr)
+    for q in range(regs):
+        a = exchange_pad(tid + lanes * q)
+        zr[..., a], zi[..., a] = xr[q], xi[q]
+    wc, ws = (torch.from_numpy(t.astype(cast)).to(x.device) for t in _dft64(n))
+    re2 = torch.empty(x.shape[:-1] + (half + 1,), dtype=x.dtype, device=x.device)
+    im2 = torch.empty_like(re2)
+    for q in range(regs):
+        k = tid + lanes * q
+        a = exchange_pad((half - k) & (half - 1))
+        pr, pi = zr[..., a], zi[..., a]
+        sr, si = xr[q] + pr, xi[q] - pi
+        dr, di = xr[q] - pr, xi[q] + pi
+        c, s = wc[k], ws[k]
+        re2[..., k] = sr + (c * di + s * dr)
+        im2[..., k] = si - (c * dr - s * di)
+    # k = 0 pairs Z[0] with itself: both edge bins are exactly real
+    re2[..., 0] = xr[0][..., 0] + xi[0][..., 0]
+    re2[..., half] = xr[0][..., 0] - xi[0][..., 0]
+    im2[..., 0] = 0.0
+    im2[..., half] = 0.0
+    if parts:
+        re2[..., 1:half] *= 0.5
+        im2[..., 1:half] *= 0.5
+        return re2, im2
+    amp = torch.sqrt(re2 * re2 + im2 * im2) * (1.0 / n)
+    amp[..., 0] = re2[..., 0].abs() * (1.0 / n)
+    amp[..., half] = re2[..., half].abs() * (1.0 / n)
+    return (amp, torch.atan2(im2, re2)) if with_phase else (amp, None)
+
+
+def framed_spectrum_amp_phase_steps(x: torch.Tensor, n: int, hop: int,
+                                    window: str, with_phase: bool = True):
+    """K4's arithmetic step by step: frames at f*hop of a [B, L] signal,
+    then :func:`spectrum_amp_phase_steps`."""
+    frames = x.unfold(-1, n, hop)
+    amp, ph = spectrum_amp_phase_steps(frames.reshape(-1, n), n, window,
+                                       with_phase)
+    out_shape = frames.shape[:-1] + (n // 2 + 1,)
+    return amp.reshape(out_shape), (ph.reshape(out_shape) if with_phase else None)
 
 
 # ── K1: one-sided spectrum ───────────────────────────────────────────
@@ -206,12 +472,14 @@ def _launch_spectrum_onesided(x: torch.Tensor, n: int, window: str,
         return amp, ph
     lib = _build.library()
     twc, tws, win = _device_tables(n, window, x.device)
+    tw = _device_pass_twiddles(n // 2, x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = lib.spectrum_onesided_f32(
             x.data_ptr(), win.data_ptr(), amp.data_ptr(),
             ph.data_ptr() if with_phase else None,
-            twc.data_ptr(), tws.data_ptr(), batch, n, stream)
+            twc.data_ptr(), tws.data_ptr(), tw.data_ptr(),
+            _plan_code_of(n // 2), batch, n, stream)
     _build.check(lib, code, "spectrum_onesided")
     LAUNCHES["spectrum_onesided"] += 1
     return amp, ph
@@ -230,7 +498,7 @@ def _onesided(x: torch.Tensor, n: int, window: str, with_phase: bool):
 
 def _frames_of(x, n: int, precision: Optional[str]) -> torch.Tensor:
     resolve_precision(precision)
-    x = torch.as_tensor(x)
+    x = to_tensor(x)
     if x.shape[-1] != n:
         raise ValueError(f"frame length {x.shape[-1]} != n {n}")
     return x
@@ -388,12 +656,14 @@ def _launch_stft_onesided(x: torch.Tensor, n: int, hop: int, window: str,
         return amp, ph
     lib = _build.library()
     twc, tws, win = _device_tables(n, window, x.device)
+    tw = _device_pass_twiddles(n // 2, x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = lib.stft_onesided_f32(
             x.data_ptr(), win.data_ptr(), amp.data_ptr(),
             ph.data_ptr() if with_phase else None,
-            twc.data_ptr(), tws.data_ptr(), batch, length, n, hop, stream)
+            twc.data_ptr(), tws.data_ptr(), tw.data_ptr(),
+            _plan_code_of(n // 2), batch, length, n, hop, stream)
     _build.check(lib, code, "stft_onesided")
     LAUNCHES["stft_onesided"] += 1
     return amp, ph
@@ -406,7 +676,7 @@ def _framed(x, n: int, hop: int, window: str, precision: Optional[str],
         raise ValueError(
             f"framed spectrum needs one-sided pow-2 n > {MAX_DFT_N} with "
             f"hop % {FRAMED_HOP_QUANTUM} == 0 dividing n; got n={n}, hop={hop}")
-    x = torch.as_tensor(x)
+    x = to_tensor(x)
     shape = x.shape
     signals = x.reshape(-1, shape[-1])
     if shape[-1] < n:
@@ -472,12 +742,13 @@ def _launch_fft_rows(re: torch.Tensor, im: torch.Tensor, inverse: bool,
     if batch == 0:
         return ore, oim
     lib = _build.library()
-    twc, tws = _device_tables(n, None, re.device)
+    tw = _device_pass_twiddles(n, re.device)
     with torch.cuda.device(re.device):
         stream = torch.cuda.current_stream(re.device).cuda_stream
         code = lib.fft_rows_f32(re.data_ptr(), im.data_ptr(), ore.data_ptr(),
-                                oim.data_ptr(), twc.data_ptr(), tws.data_ptr(),
-                                batch, n, int(inverse), stream)
+                                oim.data_ptr(), tw.data_ptr(),
+                                _plan_code_of(n), batch, n, int(inverse),
+                                stream)
     _build.check(lib, code, "fft_rows")
     LAUNCHES["fft_rows"] += 1
     return ore, oim
@@ -490,9 +761,9 @@ def fft_rows_cuda(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
     inverse scales by 1/n. Power-of-two n up to 16384 on CUDA.
 
     donate=True lets the kernel write the result into ``re``/``im``
-    (which must be contiguous): each block reads its whole row into
-    shared memory before it writes, so in place is safe. The inputs must
-    be dead after the call. On the CPU, donate has no effect.
+    (which must be contiguous): each block reads all of its rows before
+    its first store, so in place is safe. The inputs must be dead after
+    the call. On the CPU, donate has no effect.
     """
     if re.ndim != 2 or re.shape != im.shape:
         raise ValueError(f"fft_rows takes two [B, n] planes, got "

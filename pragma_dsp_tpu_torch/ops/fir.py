@@ -31,6 +31,7 @@ import torch
 
 from ..core.complex import (ComplexArray, ensure_float, is_power_of_two,
                             next_power_of_two)
+from ..core.device import resolve_device, to_tensor
 from .conv_cuda import circular_convolve_cuda
 from .dispatch import fft as _fft, get_fft_impl, ifft as _ifft
 from ._tf32 import full_float32
@@ -64,15 +65,15 @@ def fir_filter(x, taps, method: str = "auto",
     precision: 'highest' or 'bf16x3' for the overlap-save kernels (both
     run in float32 here; ignored by the direct convolution).
     """
-    taps = torch.as_tensor(taps)
     if isinstance(x, ComplexArray):
         return ComplexArray(fir_filter(x.real, taps, method, precision),
                             fir_filter(x.imag, taps, method, precision))
-    x = torch.as_tensor(x)
+    x = to_tensor(x)
     if x.is_complex():
         return ComplexArray(fir_filter(x.real, taps, method, precision),
                             fir_filter(x.imag, taps, method, precision))
     x = ensure_float(x)     # int input would cast the taps to int below
+    taps = torch.as_tensor(taps, device=x.device)   # the taps follow the signal
     k = taps.shape[0]
     if method == "auto":
         method = "overlap_save" if k >= 64 and x.shape[-1] >= 4 * k else "direct"
@@ -160,9 +161,9 @@ class FirState(NamedTuple):
 
 def fir_stream_init(taps, batch_shape: Tuple[int, ...] = (),
                     dtype=torch.float32, device=None) -> FirState:
-    k = torch.as_tensor(taps).shape[0]
+    k = len(taps)
     return FirState(tail=torch.zeros(tuple(batch_shape) + (k - 1,), dtype=dtype,
-                                     device=device))
+                                     device=resolve_device(device)))
 
 
 def fir_step(state: FirState, chunk, taps) -> Tuple[FirState, torch.Tensor]:

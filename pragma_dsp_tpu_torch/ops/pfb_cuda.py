@@ -20,6 +20,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..core.complex import ComplexArray, is_power_of_two
+from ..core.device import resolve_device
 from ..core.fft import fft_axis0
 from . import _build
 from .fft_cuda import LAUNCHES, MAX_ROWS_N, _device_tables, resolve_precision
@@ -33,10 +34,13 @@ __all__ = ["MIN_CHANNELS", "pfb_tap_table", "branch_filter_plain",
 MIN_CHANNELS = 128
 
 
-def pfb_tap_table(taps, channels: int) -> Tuple[torch.Tensor, int]:
+def pfb_tap_table(taps, channels: int, device=None) -> Tuple[torch.Tensor, int]:
     """The polyphase tap table hp[t, p] = h[t*C + p], zero-padded to T*C
-    taps, T = ceil(K / C), in the taps' dtype; and T."""
-    taps = torch.as_tensor(taps)
+    taps, T = ceil(K / C), in the taps' dtype; and T. A tensor of taps stays
+    on its device; other taps go to ``device`` (the signal's, where a
+    caller has one; None: the default device)."""
+    if not isinstance(taps, torch.Tensor):
+        taps = torch.as_tensor(taps, device=resolve_device(device))
     k = taps.shape[0]
     t_taps = -(-k // channels)
     hp = torch.zeros(t_taps * channels, dtype=taps.dtype, device=taps.device)
@@ -74,7 +78,7 @@ def pfb_channelize_plain(re: torch.Tensor, im: torch.Tensor, hp: torch.Tensor
     return ore.T.reshape(vr.shape), oim.T.reshape(vi.shape)
 
 
-def _prepare(taps, channels: int, precision: Optional[str]
+def _prepare(taps, channels: int, precision: Optional[str], device
              ) -> Tuple[torch.Tensor, int]:
     """The JAX ``_pfb_prepare`` checks, and the float32 [T, C] tap table."""
     c = channels
@@ -83,7 +87,7 @@ def _prepare(taps, channels: int, precision: Optional[str]
             f"fused PFB needs a power-of-two channel count >= {MIN_CHANNELS}, "
             f"got {c}")
     resolve_precision(precision)
-    hp, t_taps = pfb_tap_table(taps, c)
+    hp, t_taps = pfb_tap_table(taps, c, device)
     return hp.to(torch.float32), t_taps
 
 
@@ -129,7 +133,7 @@ def pfb_channelize_frames_cuda(x: ComplexArray, taps, channels: int,
     if x.real.ndim < 2 or x.real.shape[-1] != c:
         raise ValueError(
             f"frames input must be [..., M, {c}], got {tuple(x.real.shape)}")
-    hp, _ = _prepare(taps, c, precision)
+    hp, _ = _prepare(taps, c, precision, x.real.device)
     shape = x.real.shape
     batch = math.prod(shape[:-2])
     xr = x.real.reshape(batch, shape[-2], c)

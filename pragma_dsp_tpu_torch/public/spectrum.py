@@ -21,6 +21,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..core.complex import is_power_of_two, next_power_of_two
+from ..core.device import to_tensor
 from ..ops.dispatch import fft as _fft, get_fft_impl
 from ..ops.fft_cuda import spectrum_amp_phase_cuda
 from ..xform.fourier import (apply_window, bin_frequencies, create_window,
@@ -53,7 +54,7 @@ class SpectrumResult(NamedTuple):
 
 def build_frame(samples, size: int) -> torch.Tensor:
     """Zero-pad or truncate the last axis to ``size`` (spectrum.ts:36-43)."""
-    samples = torch.as_tensor(samples)
+    samples = to_tensor(samples)
     n = samples.shape[-1]
     if n == size:
         return samples
@@ -111,9 +112,10 @@ def spectrum(samples, *, sample_rate: float = 1.0, fft_size: Optional[int] = Non
 
     Defaults match the reference: sample_rate=1, sides="one", window="rect",
     fft_size=next_power_of_two(len). Accepts [n] or [batch..., n] input;
-    the result lies on the input's device.
+    the result lies on the input's device (host input: the default
+    device, ``core/device.py``).
     """
-    samples = torch.as_tensor(samples)
+    samples = to_tensor(samples)
     if samples.is_complex():
         # The beginner rung takes REAL samples; a complex array would
         # silently lose its imaginary part in the real cast below.

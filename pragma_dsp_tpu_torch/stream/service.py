@@ -14,6 +14,7 @@ from typing import Dict, Iterable, Iterator, Optional, Tuple
 import torch
 
 from ..core.complex import next_power_of_two
+from ..core.device import resolve_device, to_tensor
 from ..public.spectrum import SpectrumResult, spectrum as _spectrum
 from ..xform.fourier import FFT, create_window
 
@@ -29,7 +30,7 @@ class FourierService:
 
     def __init__(self, dtype=torch.float32, device=None):
         self._dtype = dtype
-        self._device = device
+        self._device = resolve_device(device)
         self._fft_cache: Dict[int, FFT] = {}
         self._window_cache: Dict[Tuple[str, int], torch.Tensor] = {}
 
@@ -68,7 +69,7 @@ def spectrum_fx(samples, *, service: Optional[FourierService] = None,
     is :func:`spectrum` itself, so the two agree by construction."""
     svc = service if service is not None else default_service()
     target = fft_size if fft_size is not None else next_power_of_two(
-        torch.as_tensor(samples).shape[-1])
+        to_tensor(samples).shape[-1])
     svc.fft(target)
     svc.window(window, target)
     return _spectrum(samples, sample_rate=sample_rate, fft_size=target,

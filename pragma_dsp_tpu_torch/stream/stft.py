@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..core.complex import ComplexArray, as_complex_array, ensure_float
+from ..core.device import resolve_device, to_tensor
 from ..ops.dispatch import fft as _fft, ifft as _ifft
 from ..ops.fft_cuda import (FRAMED_HOP_QUANTUM, MAX_DFT_N,
                             framed_spectrum_amp_phase_cuda,
@@ -54,7 +55,7 @@ def frame_signal(x, frame_size: int, hop: int) -> torch.Tensor:
     result is a strided view of ``x`` (no copy): frame f is
     ``x[..., f*hop : f*hop + frame_size]``.
     """
-    x = torch.as_tensor(x)
+    x = to_tensor(x)
     length = x.shape[-1]
     if length < frame_size:
         raise ValueError(f"signal length {length} < frame_size {frame_size}")
@@ -263,7 +264,7 @@ def stft_stream_init(n_fft: int, hop: int, batch_shape: Tuple[int, ...] = (),
     """Zero state. First emitted frames treat the signal as zero-padded
     history, matching a cold stream start."""
     return StftState(tail=torch.zeros(tuple(batch_shape) + (n_fft - hop,),
-                                      dtype=dtype, device=device))
+                                      dtype=dtype, device=resolve_device(device)))
 
 
 def stft_step(state: StftState, chunk, n_fft: int, hop: int,
@@ -274,7 +275,7 @@ def stft_step(state: StftState, chunk, n_fft: int, hop: int,
     fixed shape. Equivalent to running :func:`stft` over the concatenated
     stream: the carry supplies the n_fft - hop samples of overlap.
     """
-    chunk = torch.as_tensor(chunk)
+    chunk = to_tensor(chunk)
     if chunk.shape[-1] % hop != 0:
         raise ValueError(
             f"chunk length {chunk.shape[-1]} must be a multiple of hop {hop}")

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..core.complex import ComplexArray, tensor_to_numpy
+from ..core.device import resolve_device
 from ..ops.channelizer import PfbFramesState, PfbState
 from ..ops.fir import FirState
 from ..public.spectrum import SpectrumPeak, SpectrumResult
@@ -27,7 +28,8 @@ __all__ = ["complex_from_numpy", "to_numpy", "result_to_numpy",
 
 
 def complex_from_numpy(z, dtype=None, device=None) -> ComplexArray:
-    """A numpy complex (or real) array as split planes on ``device``."""
+    """A numpy complex (or real) array as split planes on ``device`` (None:
+    the default device)."""
     return ComplexArray.from_numpy_complex(np.asarray(z), dtype=dtype,
                                            device=device)
 
@@ -53,7 +55,7 @@ def _leaf_to_numpy(a) -> np.ndarray:
 
 
 def _leaf_from_numpy(a, dtype, device) -> torch.Tensor:
-    return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+    return torch.as_tensor(np.array(a), dtype=dtype, device=resolve_device(device))
 
 
 def state_to_numpy(cls, state):
@@ -64,7 +66,7 @@ def state_to_numpy(cls, state):
 
 def state_from_numpy(cls, state, dtype=None, device=None):
     """A carry of array-likes (numpy, or the JAX twin's arrays) as a ``cls``
-    of tensors on ``device``."""
+    of tensors on ``device`` (None: the default device)."""
     return cls(*(_leaf_from_numpy(a, dtype, device) for a in state))
 
 

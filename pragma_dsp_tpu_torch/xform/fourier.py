@@ -14,6 +14,7 @@ import torch
 
 from ..core.complex import (ComplexArray, as_complex_array,
                             create_complex_array, is_power_of_two)
+from ..core.device import resolve_device, to_tensor
 from ..core.fft import Radix2Fft
 
 WindowType = Literal["rect", "hann", "hamming", "blackman"]
@@ -63,12 +64,12 @@ def create_window(window_type: str, size: int, dtype=torch.float32,
                   device=None) -> torch.Tensor:
     """Window function as a tensor (reference createWindow, fourier.ts:14-52)."""
     return torch.from_numpy(window_values(window_type, size)).to(
-        device=device, dtype=dtype)
+        device=resolve_device(device), dtype=dtype)
 
 
 def apply_window(x, window) -> torch.Tensor:
     """Element-wise window multiply over the last axis (fourier.ts:54-67)."""
-    x = torch.as_tensor(x)
+    x = to_tensor(x)
     window = torch.as_tensor(window).to(device=x.device, dtype=x.dtype)
     if x.shape[-1] != window.shape[-1]:
         raise ValueError("Window length must match input length.")
@@ -114,7 +115,7 @@ def phase(x) -> torch.Tensor:
 def fft_shift(x, axis: int = -1) -> torch.Tensor:
     """Left roll by floor(N/2) (reference fourier.ts:122-133):
     result[i] = input[(i + N//2) % N]."""
-    x = torch.as_tensor(x)
+    x = to_tensor(x)
     n = x.shape[axis]
     return torch.roll(x, -(n // 2), dims=axis)
 
@@ -148,5 +149,6 @@ def bin_frequencies(size: int, sample_rate: float, sides: str = "one",
     bin_count = size // 2 + 1 if sides == "one" else size
     # Built on the device: a copy from pageable host memory would
     # synchronise the stream. One float64 multiply, as numpy does it.
-    freqs = torch.arange(bin_count, dtype=torch.float64, device=device)
+    freqs = torch.arange(bin_count, dtype=torch.float64,
+                         device=resolve_device(device))
     return (freqs * (float(sample_rate) / size)).to(dtype)

@@ -1,0 +1,103 @@
+#!/usr/bin/env python3
+"""Time the PyTorch port's row kernels (K2 row FFT, K1 one-sided spectrum,
+K4 framed spectrogram) of the checkout at --root on one CUDA card, so that
+two checkouts can be compared on the same card, one after the other:
+
+    python3 scripts/torch_kernel_times.py --root /path/to/parent
+    python3 scripts/torch_kernel_times.py --root .
+    python3 scripts/torch_kernel_times.py --root .
+    python3 scripts/torch_kernel_times.py --root /path/to/parent
+
+Each call is timed twice with CUDA events, as the median over runs of
+`inner` back-to-back launches: as launched ("ms"), where short kernels wait
+for the host's launch work, and queued behind a device spin ("queued_ms"),
+where the host has enqueued every launch before the first one runs, so
+the device's own time shows. The row FFT is timed beside torch.fft.fft on
+the same points as one complex64 tensor (the library yardstick; the port
+never calls it). Prints the card (nvidia-smi name and power limit) and one
+JSON object per shape. Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+K2_SHAPES = ((16384, 1024), (16384, 128), (1024, 16384), (65536, 1024), (1, 1024))
+K1_SHAPES = ((16384, 1024), (4096, 4096))
+K4_SHAPE = (128, 480000, 4096, 1024)     # [channels, samples], n, hop
+SPIN_CYCLES = 6_000_000                  # a few ms of device spin
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--root", default=".", help="checkout that holds pragma_dsp_tpu_torch/")
+    parser.add_argument("--runs", type=int, default=11)
+    parser.add_argument("--inner", type=int, default=10)
+    args = parser.parse_args()
+    sys.path.insert(0, os.path.abspath(args.root))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_kernel_times: needs one CUDA card", file=sys.stderr)
+        return 1
+    from pragma_dsp_tpu_torch.ops import fft_cuda
+
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(f"root {os.path.abspath(args.root)}; card: {card}", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(1337)
+
+    def timed(fn, queued: bool) -> float:
+        fn()
+        torch.cuda.synchronize()
+        per = []
+        for _ in range(args.runs):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            if queued:
+                torch.cuda._sleep(SPIN_CYCLES)
+            a.record()
+            for _ in range(args.inner):
+                fn()
+            b.record()
+            b.synchronize()
+            per.append(a.elapsed_time(b) / args.inner)
+        return float(np.median(per))
+
+    def report(kernel: str, shape, fn, library=None) -> None:
+        row = {"kernel": kernel, "shape": list(shape), "ms": timed(fn, False),
+               "queued_ms": timed(fn, True)}
+        if library is not None:
+            row["library_ms"], row["library_queued_ms"] = timed(library, False), timed(library, True)
+        print(json.dumps(row), flush=True)
+
+    for batch, n in K2_SHAPES:
+        re = torch.randn((batch, n), generator=gen, device=dev)
+        im = torch.randn((batch, n), generator=gen, device=dev)
+        cplx = torch.complex(re, im)
+        report("fft_rows", (batch, n), lambda: fft_cuda.fft_rows_cuda(re, im),
+               library=lambda: torch.fft.fft(cplx, dim=-1))
+    for batch, n in K1_SHAPES:
+        x = torch.randn((batch, n), generator=gen, device=dev)
+        report("spectrum_onesided amp+phase", (batch, n),
+               lambda: fft_cuda.spectrum_amp_phase_cuda(x, n, "hann"))
+        report("spectrum_onesided amp", (batch, n),
+               lambda: fft_cuda.spectrum_amplitude_cuda(x, n, "hann"))
+    channels, length, n, hop = K4_SHAPE
+    sig = torch.randn((channels, length), generator=gen, device=dev)
+    report("stft_onesided amp", K4_SHAPE,
+           lambda: fft_cuda.framed_spectrum_amplitude_cuda(sig, n, hop, "hann"))
+    report("stft_onesided amp+phase", K4_SHAPE,
+           lambda: fft_cuda.framed_spectrum_amp_phase_cuda(sig, n, hop, "hann"))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -44,6 +44,7 @@ import pragma_dsp_tpu as jpd
 import pragma_dsp_tpu.stream as jstream
 import pragma_dsp_tpu_torch as pt
 from pragma_dsp_tpu.xform.fourier import window_values
+from pragma_dsp_tpu_torch import set_default_device
 
 pstream = importlib.import_module("pragma_dsp_tpu_torch.stream")
 jops = importlib.import_module("pragma_dsp_tpu.ops")
@@ -58,6 +59,15 @@ F64_TOL, AMP_TOL, PHASE_TOL = 1e-10, 2e-6, 1e-4
 JAX_F64_FAULT = {("spectrogram_amplitude", "f64"), ("spectrogram_amplitude", "int")}
 # The port's float64 spectrogram rule: ops.dispatch, power-of-two n only.
 PORT_F64_RULE = ("spectrogram_amplitude", "f64")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _cpu_is_the_default_device():
+    """These tests run on the CPU and say so: host input (numpy arrays,
+    lists, ``device=None``) would otherwise go to the card."""
+    previous = set_default_device("cpu")
+    yield
+    set_default_device(previous)
 
 
 def _signal(kind: str, n: int) -> np.ndarray:

@@ -37,6 +37,7 @@ from pragma_dsp_tpu_torch.ops.pfb_cuda import pfb_channelize_plain, pfb_tap_tabl
 from pragma_dsp_tpu_torch.utils import (pfb_frames_state_from_numpy,
                                         pfb_frames_state_to_numpy,
                                         pfb_state_from_numpy, pfb_state_to_numpy)
+from pragma_dsp_tpu_torch import set_default_device
 
 jch = importlib.import_module("pragma_dsp_tpu.ops.channelizer")
 pch = importlib.import_module("pragma_dsp_tpu_torch.ops.channelizer")
@@ -46,6 +47,15 @@ F64_TOL = 1e-10
 # unnormalised DFT; two FFT algorithms each round to ~1e-7 of that.
 F32_RTOL = 2e-6
 CHANNELS = (16, 128, 256)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _cpu_is_the_default_device():
+    """These tests run on the CPU and say so: host input (numpy arrays,
+    lists, ``device=None``) would otherwise go to the card."""
+    previous = set_default_device("cpu")
+    yield
+    set_default_device(previous)
 
 
 def _iq(seed, shape):

@@ -16,12 +16,22 @@ from pragma_dsp_tpu_torch.core import (
     ComplexArray, Radix2Fft, as_complex_array, create_complex_array,
     ensure_float, fft, fft_axis0, ifft, is_power_of_two, next_power_of_two)
 from pragma_dsp_tpu_torch.utils import complex_from_numpy, to_numpy
+from pragma_dsp_tpu_torch import set_default_device
 
 # The packages export a function ``fft`` that shadows the submodule name.
 jfft = importlib.import_module("pragma_dsp_tpu.core.fft")
 tfft = importlib.import_module("pragma_dsp_tpu_torch.core.fft")
 
 RNG = np.random.default_rng(77)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _cpu_is_the_default_device():
+    """These tests run on the CPU and say so: host input (numpy arrays,
+    lists, ``device=None``) would otherwise go to the card."""
+    previous = set_default_device("cpu")
+    yield
+    set_default_device(previous)
 
 
 def _complex_signal(shape, dtype=np.complex128):

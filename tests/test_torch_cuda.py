@@ -1,4 +1,5 @@
-"""K1-K7 on a CUDA card, against float64 numpy and their plain versions,
+"""K1-K7 on a CUDA card, against float64 numpy and their plain versions
+(K2, K1 and K4 also at every size against their step-by-step versions),
 under the bench.py gates (>=105 dB; >=120 dB at n <= 128), and K4
 bit-equal to K1 on the same frames; K5a/K5b (circular convolution) at
 >=125 dB and K6 (the channelizer) at >=105 dB, with their routes' launch
@@ -401,3 +402,116 @@ def test_long_entries_on_cuda(dev):
     zp = np.concatenate([np.zeros(c), z]).reshape(frames + 1, c)
     ref = np.fft.fft(hp[:c] * zp[1:] + hp[c:] * zp[:-1], axis=-1)
     assert _snr(_cplanes(ref), _cplanes(got)) >= 105.0
+
+
+# ── the register core of K2, K1 and K4: every plan, every frame size ──
+
+
+def _dev_snr(refs, gots):
+    power = err = 0.0
+    for ref, got in zip(refs, gots):
+        ref, got = ref.double(), got.double()
+        power += float((ref * ref).sum())
+        err += float(((got - ref) ** 2).sum())
+    return np.inf if err == 0 else 10 * np.log10(power / err)
+
+
+@pytest.mark.parametrize("n", [1 << k for k in range(0, 15)])
+def test_k2_every_plan_on_cuda(dev, n):
+    """Forward and inverse at every power of two, at a batch that leaves the
+    last block ragged: against float64 numpy, the step-by-step version in
+    float64 (>= 125 dB), donated in place, and as a strided view through
+    ops.dispatch."""
+    rng = np.random.default_rng(n)
+    re = torch.from_numpy(rng.standard_normal((37, n)).astype(np.float32)).to(dev)
+    im = torch.from_numpy(rng.standard_normal((37, n)).astype(np.float32)).to(dev)
+    zf = re.cpu().double().numpy() + 1j * im.cpu().double().numpy()
+    gate = 120.0 if n <= 128 else 105.0
+    for inverse, oracle in ((False, np.fft.fft), (True, np.fft.ifft)):
+        before = fft_cuda.LAUNCHES["fft_rows"]
+        got = fft_cuda.fft_rows_cuda(re, im, inverse)
+        assert fft_cuda.LAUNCHES["fft_rows"] == before + 1
+        want = oracle(zf, axis=-1)
+        assert _snr(np.stack([want.real, want.imag]),
+                    np.stack([got[0].cpu().numpy(), got[1].cpu().numpy()])) >= gate
+        steps = fft_cuda.fft_rows_steps(re.double(), im.double(), inverse)
+        assert _dev_snr(steps, got) >= 125.0
+        dre, dim_ = re.clone(), im.clone()
+        out = fft_cuda.fft_rows_cuda(dre, dim_, inverse, donate=True)
+        assert out[0].data_ptr() == dre.data_ptr() and out[1].data_ptr() == dim_.data_ptr()
+        assert torch.equal(out[0], got[0]) and torch.equal(out[1], got[1])
+    fwd = fft_cuda.fft_rows_cuda(re, im)
+    col = dispatch.fft(ComplexArray(re.T, im.T), axis=0)     # a strided view
+    assert torch.equal(col.real, fwd[0].T) and torch.equal(col.imag, fwd[1].T)
+
+
+@pytest.mark.parametrize("n", [1 << k for k in range(8, 15)])
+def test_k1_k4_every_size_on_cuda(dev, n):
+    """K1 at a batch that does not divide the frames a block takes, against
+    float64 numpy and the step-by-step version; K4 with hop 128, n/4 and n
+    and an odd number of frames, bit-equal to K1."""
+    rng = np.random.default_rng(n)
+    x = rng.standard_normal((37, n)).astype(np.float32)
+    xd = torch.from_numpy(x).to(dev)
+    for window in ("hann", "rect"):
+        amp, ph = fft_cuda.spectrum_amp_phase_cuda(xd, n, window)
+        ref = np.abs(np.fft.rfft(x.astype(np.float64) * window_values(window, n), axis=-1))
+        ref[:, 1:-1] *= 2.0 / n
+        ref[:, [0, -1]] /= n
+        assert _snr(ref, amp.cpu().numpy()) >= 105.0
+        samp, sph = fft_cuda.spectrum_amp_phase_steps(xd.double(), n, window)
+        assert _dev_snr((samp,), (amp,)) >= 125.0
+        mask = samp > 1e-3
+        d = np.angle(np.exp(1j * (ph[mask].double() - sph[mask]).cpu().numpy()))
+        assert np.abs(d).max() <= 1e-4
+        edges = ph[:, [0, -1]]
+        assert bool(torch.isin(edges, torch.tensor([0.0, np.pi], dtype=torch.float32,
+                                                   device=dev)).all())
+        assert not bool(torch.signbit(edges).any())
+        assert torch.equal(fft_cuda.spectrum_amplitude_cuda(xd, n, window), amp)
+    for hop in sorted({128, max(128, n // 4), n}):
+        sig = torch.from_numpy(rng.standard_normal(
+            (3, n + 6 * hop + 17)).astype(np.float32)).to(dev)
+        a4, p4 = fft_cuda.framed_spectrum_amp_phase_cuda(sig, n, hop, "hann")
+        a1, p1 = fft_cuda.spectrum_amp_phase_cuda(
+            frame_signal(sig, n, hop).contiguous(), n, "hann")
+        assert a4.shape == (3, 7, n // 2 + 1)
+        assert torch.equal(a4, a1) and torch.equal(p4, p1)
+        odd = sig[0, 1:]                                      # starts on an odd word
+        assert torch.equal(fft_cuda.framed_spectrum_amplitude_cuda(odd, n, hop, "hann"),
+                           fft_cuda.framed_spectrum_amplitude_cuda(odd.clone(), n, hop,
+                                                                   "hann"))
+
+
+def test_bf16_dispatch_is_the_f32_kernel_cast_back(dev):
+    rng = np.random.default_rng(16)
+    re = torch.from_numpy(rng.standard_normal((8, 1024)).astype(np.float32)).to(dev)
+    im = torch.from_numpy(rng.standard_normal((8, 1024)).astype(np.float32)).to(dev)
+    bf = dispatch.fft(ComplexArray(re.bfloat16(), im.bfloat16()))
+    f32 = fft_cuda.fft_rows_cuda(re.bfloat16().float(), im.bfloat16().float())
+    assert bf.real.dtype == torch.bfloat16
+    assert torch.equal(bf.real, f32[0].bfloat16()) and torch.equal(bf.imag, f32[1].bfloat16())
+
+
+def test_host_input_lands_on_the_card(dev):
+    """numpy arrays and device=None go to the card, with no device named,
+    and run the kernels there."""
+    from pragma_dsp_tpu_torch import default_device
+    from pragma_dsp_tpu_torch.entry import entry
+
+    assert default_device().type == "cuda"
+    t = np.arange(1024) / 48000.0
+    x = np.tile((0.8 * np.sin(2 * np.pi * 1500.0 * t)).astype(np.float32), (4, 1))
+    before = dict(fft_cuda.LAUNCHES)
+    r = spectrum(x, sample_rate=48000.0, window="hann")
+    assert r.amplitude.is_cuda and r.phase.is_cuda and r.peak.index.is_cuda
+    assert fft_cuda.LAUNCHES["spectrum_onesided"] == before["spectrum_onesided"] + 1
+    assert bool((r.peak.frequency == 1500.0).all())
+    step, (batch,) = entry()
+    assert batch.is_cuda
+    amp, idx, _, _ = step(batch)
+    assert amp.is_cuda and int(idx[0]) == 32
+    assert fft_cuda.LAUNCHES["fft_rows"] == before["fft_rows"] + 1
+    y = fir_filter(x, np.ones(8, np.float32))
+    assert y.is_cuda and dispatch.fft(x).real.is_cuda
+    assert spectrum(torch.from_numpy(x)).amplitude.device.type == "cpu"

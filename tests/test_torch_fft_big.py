@@ -19,6 +19,7 @@ from pragma_dsp_tpu.utils.fixtures import snr_db
 from pragma_dsp_tpu_torch.core import ComplexArray
 from pragma_dsp_tpu_torch.ops import (dispatch, fft_cuda, overlap_save_filter,
                                       pfb_channelize, pfb_taps)
+from pragma_dsp_tpu_torch import set_default_device
 
 # The packages export functions that shadow these submodule names.
 jpallas = importlib.import_module("pragma_dsp_tpu.ops.fft_pallas")
@@ -31,6 +32,15 @@ pfir = importlib.import_module("pragma_dsp_tpu_torch.ops.fir")
 
 RNG = np.random.default_rng(77)
 LANES = 128
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _cpu_is_the_default_device():
+    """These tests run on the CPU and say so: host input (numpy arrays,
+    lists, ``device=None``) would otherwise go to the card."""
+    previous = set_default_device("cpu")
+    yield
+    set_default_device(previous)
 
 
 def _cx(shape, dtype=np.complex64):

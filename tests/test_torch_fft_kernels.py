@@ -19,12 +19,22 @@ from pragma_dsp_tpu.utils.fixtures import snr_db
 from pragma_dsp_tpu_torch.core import ComplexArray
 from pragma_dsp_tpu_torch.ops import (_build, conv_cuda, dispatch, fft_cuda, fir_filter,
                                       pfb_cuda)
+from pragma_dsp_tpu_torch import set_default_device
 
 # The packages export functions that shadow these submodule names.
 jfft = importlib.import_module("pragma_dsp_tpu.core.fft")
 jpallas = importlib.import_module("pragma_dsp_tpu.ops.fft_pallas")
 
 RNG = np.random.default_rng(5)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _cpu_is_the_default_device():
+    """These tests run on the CPU and say so: host input (numpy arrays,
+    lists, ``device=None``) would otherwise go to the card."""
+    previous = set_default_device("cpu")
+    yield
+    set_default_device(previous)
 
 
 def _frames(batch, n):

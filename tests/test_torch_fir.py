@@ -33,6 +33,7 @@ from pragma_dsp_tpu_torch.ops import (FirState, circular_convolve_cuda,
                                       fir_stream_init, overlap_save_filter)
 from pragma_dsp_tpu_torch.ops.conv_cuda import circular_convolve_plain
 from pragma_dsp_tpu_torch.utils import fir_state_from_numpy, fir_state_to_numpy
+from pragma_dsp_tpu_torch import set_default_device
 
 jfir = importlib.import_module("pragma_dsp_tpu.ops.fir")
 jpoly = importlib.import_module("pragma_dsp_tpu.ops.polyphase")
@@ -42,6 +43,15 @@ F64_TOL = 1e-10
 # float32 against float32, unit-scale signals: two FFT algorithms (or a
 # convolution against an FFT route) each round to ~1e-7 per output.
 F32_TOL = 2e-6
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _cpu_is_the_default_device():
+    """These tests run on the CPU and say so: host input (numpy arrays,
+    lists, ``device=None``) would otherwise go to the card."""
+    previous = set_default_device("cpu")
+    yield
+    set_default_device(previous)
 
 
 def _rng(seed):

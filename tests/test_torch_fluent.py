@@ -17,9 +17,19 @@ from pragma_dsp_tpu_torch.core import ComplexArray
 from pragma_dsp_tpu_torch.fluent import (NonZero, NotInvertibleError, as_non_zero,
                                          assert_non_zero, chain)
 from pragma_dsp_tpu_torch.xform import FluentFFT
+from pragma_dsp_tpu_torch import set_default_device
 
 RNG = np.random.default_rng(3)
 TOL = 1e-10
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _cpu_is_the_default_device():
+    """These tests run on the CPU and say so: host input (numpy arrays,
+    lists, ``device=None``) would otherwise go to the card."""
+    previous = set_default_device("cpu")
+    yield
+    set_default_device(previous)
 
 
 def _z(shape=(2, 16)):

@@ -14,12 +14,22 @@ from pragma_dsp_tpu.core import ComplexArray as JComplexArray
 from pragma_dsp_tpu.utils.fixtures import snr_db
 from pragma_dsp_tpu_torch.core import ComplexArray
 from pragma_dsp_tpu_torch.ops import irfft, rfft
+from pragma_dsp_tpu_torch import set_default_device
 
 jrfft = importlib.import_module("pragma_dsp_tpu.ops.rfft")
 prfft = importlib.import_module("pragma_dsp_tpu_torch.ops.rfft")
 
 RNG = np.random.default_rng(60)
 F64_TOL = 1e-10
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _cpu_is_the_default_device():
+    """These tests run on the CPU and say so: host input (numpy arrays,
+    lists, ``device=None``) would otherwise go to the card."""
+    previous = set_default_device("cpu")
+    yield
+    set_default_device(previous)
 
 
 def _cplx(c):

@@ -20,6 +20,16 @@ from pragma_dsp_tpu_torch.public.spectrum import (
 from pragma_dsp_tpu_torch.stream import (
     FourierService, default_service, spectrum_fx, spectrum_stream)
 from pragma_dsp_tpu_torch.utils import result_to_numpy
+from pragma_dsp_tpu_torch import set_default_device
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _cpu_is_the_default_device():
+    """These tests run on the CPU and say so: host input (numpy arrays,
+    lists, ``device=None``) would otherwise go to the card."""
+    previous = set_default_device("cpu")
+    yield
+    set_default_device(previous)
 
 
 def _port(x, **kw):

@@ -23,6 +23,7 @@ from pragma_dsp_tpu_torch.stream import (
     spectrogram_amplitude, stft, stft_step, stft_stream_init, welch_psd)
 from pragma_dsp_tpu_torch.utils import (result_to_numpy, stft_state_from_numpy,
                                         stft_state_to_numpy)
+from pragma_dsp_tpu_torch import set_default_device
 
 pstft = importlib.import_module("pragma_dsp_tpu_torch.stream.stft")
 
@@ -30,6 +31,15 @@ RNG = np.random.default_rng(31)
 F64_TOL = 1e-10
 AMP_TOL = 2e-6     # float32 fused routes against JAX (the K1 tests' tolerance)
 PHASE_TOL = 1e-4   # rad, where amp > 1e-3
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _cpu_is_the_default_device():
+    """These tests run on the CPU and say so: host input (numpy arrays,
+    lists, ``device=None``) would otherwise go to the card."""
+    previous = set_default_device("cpu")
+    yield
+    set_default_device(previous)
 
 
 def _t(a):

@@ -13,9 +13,19 @@ from pragma_dsp_tpu_torch.utils import complex_from_numpy
 from pragma_dsp_tpu_torch.xform import (
     FFT, apply_window, bin_frequencies, coherent_gain, create_window, enbw,
     fft_shift, fft_shift_complex, magnitude, phase, window_values)
+from pragma_dsp_tpu_torch import set_default_device
 
 RNG = np.random.default_rng(31)
 WINDOWS = ["rect", "hann", "hamming", "blackman"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _cpu_is_the_default_device():
+    """These tests run on the CPU and say so: host input (numpy arrays,
+    lists, ``device=None``) would otherwise go to the card."""
+    previous = set_default_device("cpu")
+    yield
+    set_default_device(previous)
 
 
 @pytest.mark.parametrize("size", [1, 2, 7, 256, 1024])
