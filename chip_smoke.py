@@ -24,16 +24,22 @@ Phases (one line each; any failed gate exits non-zero):
      every n from 256 to 16384 with hop 128, n/4 and n, an odd number of
      frames, and against its step-by-step version), the stft -> istft
      roundtrip and the streaming carry;
-  8. K3 at small n against float64 numpy and its plain version;
+  8. K3 at small n against float64 numpy and its plain version, and at every
+     power of two from 2 to 16384 (two-sided, a batch that leaves a block
+     ragged) against float64 numpy and its step-by-step version in float64;
   9. launch counts of the spectrogram path, one call at a time (the
      default route must launch K4 and nothing else);
  10. the spectrogram routes at full width, [128, 480000], with CUDA events;
  11. K5a/K5b (circular convolution) against float64 numpy and their plain
-     version, K5a on one frame, donate in place;
+     version, K5a on one frame, donate in place, and at every n from 256 to
+     16384 (a ragged odd batch and one frame) against float64 numpy and
+     their step-by-step version in float64;
  12. the FIR path at full width: a 127-tap Hamming-windowed lowpass over phase 10's
      [128, 480000] signal (overlap-save through K2 + K5b, direct, fir_step)
      and a 2^22 row against float64 lfilter, one-frame overlap-save (K5a),
-     launch counts one call at a time, and times;
+     launch counts one call at a time (fir_filter launches the signal-in
+     entry of K5 once and materialises no frames: bit-equal to, and its peak
+     memory beside, the route over materialised frames), and times;
  13. config 5 (bench.py's 256-channel PFB) and C = 128, 4096 against the
      float64 oracle, frames/flat/streaming bit-equal, launch counts, and
      K6 against its plain version on 1e8 complex samples;
@@ -49,10 +55,11 @@ Phases (one line each; any failed gate exits non-zero):
      overlap-save block, 32768 channels;
  17. times at [64, 2^20] and for one 2^20 row: K7, the forward pair, the
      natural-order FFT, the roundtrip, the plain versions, torch.fft.fft as
-     the library yardstick (never on a path), the tile widths, and axis -2
-     through K7 against movedim + K2;
+     the library yardstick (never on a path; K7 with and without the fold
+     beside torch.fft.fft with and without the grid multiply), the tile
+     widths, and axis -2 through K7 against movedim + K2;
  18. each kernel's time beside its bound (bytes over 3.35 TB/s or operations
-     over 67 TFLOP/s, whichever is larger; K1 and K4 counted as real-input
+     over 67 TFLOP/s, whichever is larger; K1, K3 and K4 counted as real-input
      transforms), its plain version and the library.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -78,7 +85,7 @@ PHASE_TOL = 1e-4         # rad, where amp > 1e-3 (tests/test_pallas_fft.py)
 STEPS_GATE_DB = 125.0    # a kernel against its step-by-step version in float64
 ALL_BATCH = 37           # the every-n sweeps: no multiple of the rows a block takes
 K2_ALL_N = tuple(1 << k for k in range(1, 15))    # every plan of the row FFT
-K1_ALL_N = tuple(1 << k for k in range(8, 15))    # every n K1 and K4 take
+K1_ALL_N = tuple(1 << k for k in range(8, 15))    # every n K1, K4 and K5 take
 K4_ALL_FRAMES = 7        # frames per signal in K4's sweep (3 signals: 21 frames)
 C2_LEN = 480000          # bench.py config 2 (bench.py:208-227): 10 s at 48 kHz
 C2_N, C2_HOP = 4096, 1024
@@ -604,6 +611,29 @@ def main() -> int:
         gate(s_ref >= need, f"K3 {n} {sides}: SNR vs f64 {s_ref:.1f} dB")
         gate(s_plain >= need, f"K3 {n} {sides}: SNR vs plain {s_plain:.1f} dB")
         k3[(batch, n, sides)] = dict(x=xd, err=err)
+    k3_all = {}
+    for n in K2_ALL_N:
+        x = np.random.default_rng(SEED + n).standard_normal((ALL_BATCH, n)).astype(np.float32)
+        xd = cuda(x)
+        amp = fft_cuda.spectrum_amplitude_cuda(xd, n, "hann", "two")
+        steps = fft_cuda.spectrum_twosided_steps(xd.double(), n, "hann")
+        torch.cuda.synchronize()
+        need = SMALL_N_GATE_DB if n <= 128 else GATE_DB
+        s_ref = snr_db(twosided_oracle(x, window_values("hann", n), "two"), host(amp))
+        s_steps = dev_snr_db((steps,), (amp,))
+        gate(amp.shape == (ALL_BATCH, n) and bool(torch.isfinite(amp).all()),
+             f"K3 {n}: shape or non-finite")
+        gate(s_ref >= need, f"K3 {n}: SNR vs f64 {s_ref:.1f} dB")
+        gate(s_steps >= STEPS_GATE_DB, f"K3 {n}: vs steps {s_steps:.1f} dB")
+        if n > 128:     # one magnitude, two stores
+            gate(torch.equal(amp[:, 1:n // 2], amp[:, n // 2 + 1:].flip(-1)),
+                 f"K3 {n}: bins k and n - k differ")
+        k3_all[n] = (s_ref, s_steps)
+    say(f"[8] K3 two-sided [{ALL_BATCH}, n] at every power of two: SNR vs f64 (gate >= "
+        f"{SMALL_N_GATE_DB} to n = 128, {GATE_DB} above) / vs its step-by-step version in "
+        f"float64 (gate >= {STEPS_GATE_DB}): "
+        + ", ".join(f"{n} {a:.1f}/{b:.1f}" for n, (a, b) in k3_all.items())
+        + "; bins k and n - k equal above n = 128")
 
     # 9. the spectrogram path, counted one call at a time
     def counted(fn) -> dict:
@@ -753,6 +783,31 @@ def main() -> int:
          "K5 donate=True did not write in place or differs")
     del donated, out, k5
     say(f"[11] K5a [1, {n}]: SNR vs f64 {s_one:.1f} dB; donate=True in place and equal")
+    k5_all = {}
+    for n in K1_ALL_N:
+        x = np.random.default_rng(SEED + n).standard_normal((ALL_BATCH, n)).astype(np.float32)
+        h = np.zeros(n, np.float32)
+        h[:FIR_TAPS] = h127
+        xd = cuda(x)
+        hs = dispatch.fft(cuda(h))
+        hs64 = ComplexArray(hs.real.double(), hs.imag.double())
+        ref = np.real(np.fft.ifft(np.fft.fft(x.astype(np.float64), axis=-1)
+                                  * np.fft.fft(h.astype(np.float64)), axis=-1))
+        for batch in (ALL_BATCH, 1):
+            y = conv_cuda.circular_convolve_cuda(xd[:batch], hs, n)
+            steps = conv_cuda.circular_convolve_steps(xd[:batch].double(), hs64, n)
+            torch.cuda.synchronize()
+            s_ref = snr_db(ref[:batch], host(y))
+            s_steps = dev_snr_db((steps,), (y,))
+            gate(y.shape == (batch, n) and bool(torch.isfinite(y).all()),
+                 f"K5 [{batch}, {n}]: shape or non-finite")
+            gate(s_ref >= CONV_GATE_DB, f"K5 [{batch}, {n}]: SNR vs f64 {s_ref:.1f} dB")
+            gate(s_steps >= STEPS_GATE_DB, f"K5 [{batch}, {n}]: vs steps {s_steps:.1f} dB")
+            k5_all[(n, batch)] = (s_ref, s_steps)
+    say(f"[11] K5 [{ALL_BATCH}, n] (K5b, an odd batch) and [1, n] (K5a) at every n: SNR vs "
+        f"f64 (gate >= {CONV_GATE_DB}) / vs its step-by-step version in float64 (gate >= "
+        f"{STEPS_GATE_DB}): "
+        + ", ".join(f"{n}x{b} {a:.1f}/{c:.1f}" for (n, b), (a, c) in k5_all.items()))
 
     # 12. the FIR path at full width: phase 10's [128, 480000] signal
     from scipy.signal import lfilter
@@ -763,7 +818,7 @@ def main() -> int:
     ref_w = lfilter(taps.astype(np.float64), 1.0, host(xw).astype(np.float64), axis=-1)
     say(f"[12] float64 lfilter oracle of [{C2_CHANNELS}, {C2_LEN}] in "
         f"{time.perf_counter() - t0:.1f} s")
-    fir = {"overlap-save (auto: K2 + K5b)": fir_filter(xw, taps),
+    fir = {"overlap-save (auto: K2 + K5b on the signal)": fir_filter(xw, taps),
            "direct (conv1d, TF32 off)": fir_filter(xw, taps, "direct")}
     chunk = C2_LEN // FIR_CHUNKS
     st = fir_stream_init(taps, (C2_CHANNELS,), device=dev)
@@ -795,7 +850,8 @@ def main() -> int:
         + ", ".join(f"{k} {v:.1f} dB" for k, v in fir.items()))
     x_short = cuda(rng.standard_normal(FIR_SHORT).astype(np.float32))
     for label, fn, want, kname in (
-            (f"fir_filter [{C2_CHANNELS}, {C2_LEN}] (overlap-save, many blocks)",
+            (f"fir_filter [{C2_CHANNELS}, {C2_LEN}] (overlap-save, many blocks, one launch "
+             f"of the signal-in entry)",
              lambda: fir_filter(xw, taps), {"fft_rows": 1, "osconv_pair": 1},
              "osconv_pair"),
             (f"fir_filter [{FIR_SHORT}] overlap-save (one block)",
@@ -829,6 +885,25 @@ def main() -> int:
              f"plain {k5_snr[kname]:.1f} dB")
     del got, plain
 
+    # fir_filter hands K5 the signal itself. Beside it, the route over
+    # materialised frames (pad, frame copy, K5b in place, slice): the same
+    # kernel on the same samples, so the two must be bit-equal.
+    def frames_route():
+        blocks = torch.nn.functional.pad(xw, (FIR_TAPS - 1, nb * hop - C2_LEN)).unfold(
+            -1, n_fir, hop).contiguous()
+        y = conv_cuda.circular_convolve_cuda(blocks, hs_fir, n_fir, donate=True)
+        return y[..., FIR_TAPS - 1:].reshape(C2_CHANNELS, nb * hop)[..., :C2_LEN]
+
+    y_sig = fir_filter(xw, taps)
+    gate(torch.equal(y_sig, frames_route()),
+         "fir_filter on the signal differs from K5b on the materialised frames")
+    hs64 = ComplexArray(hs_fir.real.double(), hs_fir.imag.double())
+    sig_snr = dev_snr_db((conv_cuda.overlap_save_plain(xw.double(), hs64, n_fir,
+                                                       FIR_TAPS - 1),), (y_sig,))
+    gate(sig_snr >= CONV_GATE_DB,
+         f"K5 signal-in entry vs its plain version in float64: {sig_snr:.1f} dB")
+    del y_sig
+
     def plain_fir():
         dispatch.set_fft_impl("stockham")
         try:
@@ -838,7 +913,12 @@ def main() -> int:
 
     # (label, call, plain version: fewer runs, output samples per call)
     fir_runs = (
-        ("overlap-save route (K2 + K5b)", lambda: fir_filter(xw, taps), False, samples),
+        ("overlap-save route (K2 + K5b on the signal)", lambda: fir_filter(xw, taps),
+         False, samples),
+        ("K5b signal-in entry alone", lambda: conv_cuda.overlap_save_cuda(
+            xw, hs_fir, n_fir, FIR_TAPS - 1), False, samples),
+        ("overlap-save over materialised frames (pad, copy, K5b, slice)", frames_route,
+         False, samples),
         ("overlap-save plain route (Stockham)", plain_fir, True, samples),
         ("direct k=127 (conv1d)", lambda: fir_filter(xw, taps, "direct"), False, samples),
         ("direct k=31 (conv1d)", lambda: fir_filter(xw, taps31, "direct"), False, samples),
@@ -850,17 +930,29 @@ def main() -> int:
          lambda: conv_cuda.circular_convolve_cuda(fr[:1], hs_fir, n_fir), False, n_fir),
         (f"K5 plain on one [1, {n_fir}] block",
          lambda: conv_cuda.circular_convolve_plain(fr[:1], hs_fir, n_fir), False, n_fir))
-    fir_ms = {}
+    fir_ms, fir_peak = {}, {}
     base = torch.cuda.memory_allocated()
     for label, fn, slow, count in fir_runs:
         torch.cuda.reset_peak_memory_stats()
         fn()
         torch.cuda.synchronize()
-        peak = (torch.cuda.max_memory_allocated() - base) / 1e6
+        peak = fir_peak[label] = (torch.cuda.max_memory_allocated() - base) / 1e6
         fir_ms[label] = timed(fn, runs=3, inner=1) if slow else timed(fn)
         say(f"[12] {label} on {name} ({card}): {fir_ms[label]:.4f} ms, "
             f"{count / fir_ms[label] / 1e3:.0f} Msamples/s, peak {peak:.1f} MB above "
             f"the inputs")
+    sig_mb = 4 * samples / 1e6
+    peak_new = fir_peak["overlap-save route (K2 + K5b on the signal)"]
+    peak_old = fir_peak["overlap-save over materialised frames (pad, copy, K5b, slice)"]
+    sig_bound = 8 * samples / HBM_BYTES_PER_S * 1e3
+    say(f"[12] fir_filter materialises no frames: peak {peak_new:.1f} MB above the "
+        f"{sig_mb:.1f} MB signal (the output and nothing else; gate <= 1.1 outputs) against "
+        f"{peak_old:.1f} MB over materialised frames; equal to that route bit for bit; "
+        f"signal-in entry vs its plain version in float64 {sig_snr:.1f} dB (gate >= "
+        f"{CONV_GATE_DB}); alone {fir_ms['K5b signal-in entry alone']:.4f} ms against a "
+        f"bound of {sig_bound:.4f} ms by bytes ({8 * samples / 1e6:.1f} MB, "
+        f"{100 * sig_bound / fir_ms['K5b signal-in entry alone']:.1f}% of the time)")
+    gate(peak_new <= 1.1 * sig_mb, f"fir_filter peaked {peak_new:.1f} MB above its input")
     say(f"[12] kernel vs plain on the path's blocks (gate >= {CONV_GATE_DB}): K5b SNR "
         f"{k5_snr['osconv_pair']:.1f} dB, max|kernel-plain| {k5_err['osconv_pair']:.3e}; "
         f"K5a SNR {k5_snr['osconv']:.1f} dB, max|kernel-plain| {k5_err['osconv']:.3e}")
@@ -1193,14 +1285,18 @@ def main() -> int:
                     torch.movedim(oim.view(batch, n1b, n2b), -1, -2).contiguous())
 
         cplx = torch.complex(fresh.real, fresh.imag)
+        grid_c = torch.complex(*grid_b)
         runs = {
             "K7 with the fold": (lambda: fft_cuda.fft_cols_cuda(*w3, fold=grid_b), None),
             "K7 with the fold, donated": (
                 lambda: fft_cuda.fft_cols_cuda(*w3, fold=grid_b, donate=True), refill),
             "K7 plain with the fold": (
                 lambda: fft_cuda.fft_cols_plain(*w3, fold=grid_b), None),
+            "K7 without the fold": (lambda: fft_cuda.fft_cols_cuda(*w3), None),
             "torch.fft.fft dim -2 (library)": (
                 lambda: torch.fft.fft(cplx.view(batch, n2b, n1b), dim=-2), None),
+            "torch.fft.fft dim -2, then the grid multiply (library)": (
+                lambda: torch.fft.fft(cplx.view(batch, n2b, n1b), dim=-2) * grid_c, None),
             "K2 on the pair's rows, donated": (
                 lambda: fft_cuda.fft_rows_cuda(work.real.view(-1, n1b),
                                                work.imag.view(-1, n1b), donate=True),
@@ -1234,6 +1330,13 @@ def main() -> int:
                 f"({card}): {ms:.4f} ms, {batch * BIG_N / ms / 1e3:.0f} Msamples/s, peak "
                 f"{peak:.1f} MB above the input")
         if batch == BIG_BATCH:
+            say(f"[17] K7 like with like at [{batch}, {n2b}, {n1b}]: without the fold "
+                f"{big_ms[('K7 without the fold', batch)]:.4f} ms beside torch.fft.fft "
+                f"dim -2 {big_ms[('torch.fft.fft dim -2 (library)', batch)]:.4f} ms; with "
+                f"the fold {big_ms[('K7 with the fold', batch)]:.4f} ms beside torch.fft.fft "
+                f"then the grid multiply "
+                f"{big_ms[('torch.fft.fft dim -2, then the grid multiply (library)', batch)]:.4f}"
+                f" ms")
             for tl in K7_TILES:
                 tile_ms[tl] = timed(lambda: fft_cuda._launch_fft_cols(
                     *w3, False, grid_b, False, tile=tl), runs=7, inner=2)
@@ -1269,7 +1372,7 @@ def main() -> int:
             gate(k7_wide_snr >= K7_PLAIN_GATE_DB,
                  f"K7 at full width: SNR vs plain {k7_wide_snr:.1f} dB")
             del kern, plain, nofold, via
-        del fresh, work, w3, cplx, runs
+        del fresh, work, w3, cplx, grid_c, runs
     re, im = k2[MAIN]["re"], k2[MAIN]["im"]
     cplx = torch.complex(re, im)
     k2_library_ms = timed(lambda: torch.fft.fft(cplx, dim=-1))
@@ -1305,7 +1408,8 @@ def main() -> int:
             b1 * (real_fft_flops(n1) + n1 + 6 * (n1 // 2 + 1))),
         "fft_rows": bound(16 * b1 * n1 + 8 * n1, b1 * fft_flops(n1)),
         "spectrum_twosided": bound(8 * rows3 * C2_N + 12 * C2_N,
-                                   rows3 * (fft_flops(C2_N) + 6 * C2_N)),
+                                   rows3 * (real_fft_flops(C2_N) + C2_N
+                                            + 5 * (C2_N // 2 + 1))),
         "stft_onesided": bound(
             4 * C2_CHANNELS * C2_LEN + 4 * rows3 * (C2_N // 2 + 1) + 12 * C2_N,
             rows3 * (real_fft_flops(C2_N) + C2_N + 5 * (C2_N // 2 + 1))),

@@ -1,10 +1,11 @@
-// Register-resident FFT core of the row kernels K2 (fft_rows.cu) and
-// K1/K4 (onesided.cuh): self-sorting (Stockham) mixed-radix passes, each
-// pass's butterflies done in registers.
+// Register-resident FFT core of the row kernels K2 (fft_rows.cu), K1/K4
+// and K3 above 128 points (onesided.cuh), K3 up to 128 points
+// (spectrum_twosided.cu) and K5a/K5b (osconv.cu): self-sorting (Stockham)
+// mixed-radix passes, each pass's butterflies done in registers.
 //
 // What bounds a row transform on an H100 is device memory: a row is read
 // once and written once. The shared-memory radix-2 core (radix2.cuh, which
-// the other kernels still run) spends its time elsewhere: log2(n) passes
+// K6 and K7 still run) spends its time elsewhere: log2(n) passes
 // over the row in shared memory with a barrier after each, a bit-reversed
 // store on which all 32 lanes of a warp hit one bank, and two global
 // twiddle loads per butterfly. What is left to pay for here is the rate at

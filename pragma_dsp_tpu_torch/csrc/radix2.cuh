@@ -1,5 +1,5 @@
-// Shared-memory radix-2 FFT core of K3, K5a/K5b, K6 and K7 (K1, K2 and K4
-// run the register core of fft_regs.cuh).
+// Shared-memory radix-2 FFT core of K6 (pfb.cu) and K7 (fft_cols.cu); K1-K5
+// run the register core of fft_regs.cuh.
 //
 // A thread block owns one row (or, at small n, a few rows stored back to
 // back). A row lives in shared memory as two f32 planes (re, im) of n
@@ -8,8 +8,8 @@
 // n = 16384, which fits the 227 KB a block may use, where a ping-pong
 // Stockham pair (256 KiB) would not.
 //
-// Twiddles come in as the n-entry table W[m] = (cos, sin)(-2*pi*m/n) that K3's
-// direct DFT also reads; the radix-2 core reads only m < n/2. It is built in
+// Twiddles come in as the n-entry table W[m] = (cos, sin)(-2*pi*m/n) every
+// kernel's tables come from; the radix-2 core reads only m < n/2. It is built in
 // float64 on the host and rounded to f32 once, as the JAX plans build theirs.
 // The kernels take no __sinf/__cosf and are compiled without --use_fast_math.
 #pragma once

@@ -32,10 +32,10 @@ spectrum_onesided_kernel(const float* __restrict__ x,
   const bool active = row < batch;
   const size_t out_row = static_cast<size_t>(active ? row : 0) * (N / 2 + 1);
   float* sre = smem + local * Shape::kStride;
+  const OneSidedOut<N> out = {amp + out_row, ph != nullptr ? ph + out_row : nullptr};
   onesided_frame<LOG2H, PLAN>(
-      active ? x + static_cast<size_t>(row) * N : nullptr, pairs != 0, win,
-      amp + out_row, ph != nullptr ? ph + out_row : nullptr, twc, tws, tw, sre,
-      sre + Shape::kRows * Shape::kStride, tid);
+      active ? x + static_cast<size_t>(row) * N : nullptr, pairs != 0, win, out,
+      twc, tws, tw, sre, sre + Shape::kRows * Shape::kStride, tid);
 }
 
 struct Args {

@@ -45,10 +45,9 @@ stft_onesided_kernel(const float* __restrict__ x, const float* __restrict__ win,
       x + static_cast<size_t>(b) * length + static_cast<size_t>(f) * hop;
   const size_t out_row = static_cast<size_t>(active ? row : 0) * (N / 2 + 1);
   float* sre = smem + local * Shape::kStride;
-  onesided_frame<LOG2H, PLAN>(active ? frame : nullptr, pairs != 0, win,
-                              amp + out_row, ph != nullptr ? ph + out_row : nullptr,
-                              twc, tws, tw, sre, sre + Shape::kRows * Shape::kStride,
-                              tid);
+  const OneSidedOut<N> out = {amp + out_row, ph != nullptr ? ph + out_row : nullptr};
+  onesided_frame<LOG2H, PLAN>(active ? frame : nullptr, pairs != 0, win, out, twc,
+                              tws, tw, sre, sre + Shape::kRows * Shape::kStride, tid);
 }
 
 struct Args {

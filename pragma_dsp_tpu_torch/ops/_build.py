@@ -35,13 +35,15 @@ _SIGNATURES = {
     "fft_rows_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, win, amp, ph (nullable), twc, tws, pass table, plan, batch, n, stream
     "spectrum_onesided_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # x, win, amp, cos, sin, batch, n, stream
-    "spectrum_twosided_f32": [_P, _P, _P, _P, _P, _I, _I, _P],
+    # x, win, amp, cos, sin, pass table (nullable), plan, batch, n, stream
+    "spectrum_twosided_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # x, win, amp, ph (nullable), twc, tws, pass table, plan, batch, length,
     # n, hop, stream
     "stft_onesided_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # in, out, hre, him, twc, tws, batch, n, pair, stream
-    "osconv_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # in, out, hre, him, pass table, plan, batch, n, stream
+    "osconv_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # in, out, hre, him, pass table, plan, rows, length, n, overlap, stream
+    "osconv_signal_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # xre, xim, ore, oim, hp, twc, tws, frames, m_frames, c, t_taps, stream
     "pfb_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # in_re, in_im, out_re, out_im, gc, gs (both nullable), twc, tws, batch,

@@ -10,12 +10,15 @@ Counterpart of ``pragma_dsp_tpu/ops/fft_pallas.py``:
   (``csrc/onesided.cuh``).
 * K2 ``fft_rows`` (``csrc/fft_rows.cu``) replaces ``_fft2d_kernel``: a
   batched complex FFT over the last axis, natural order in and out, by the
-  register-resident mixed-radix core (``csrc/fft_regs.cuh``) that K1 and
-  K4 share; :func:`radix_plan` is its plan.
+  register-resident mixed-radix core (``csrc/fft_regs.cuh``) that K1, K3,
+  K4 and K5 share; :func:`radix_plan` is its plan.
 * K3 ``spectrum_twosided`` (``csrc/spectrum_twosided.cu``) replaces
   ``_spectrum_kernel``: window -> DFT -> |X|/n over all n bins, for any
   n <= 128 and power-of-two n above; it serves ``sides="two"`` and the
-  one-sided n <= 128 spectra of :func:`spectrum_amplitude_cuda`.
+  one-sided n <= 128 spectra of :func:`spectrum_amplitude_cuda`. Above 128
+  points it is K1's packed real transform with a two-sided store (each
+  magnitude written at k and n - k); up to 128, the complex core on a zero
+  imaginary plane, or a direct DFT off the powers of two.
 * K4 ``stft_onesided`` (``csrc/stft_onesided.cu``) replaces
   ``_stft_onesided_kernel``: K1 read straight from a signal at a hop, so a
   spectrogram never materialises its overlapping frames.
@@ -30,8 +33,9 @@ effect: window -> ``ops.dispatch.fft`` (the large FFT, K7 then K2) -> |X|,
 phase and scaling in PyTorch, with DC and Nyquist made real as K1 makes
 them.
 
-``fft_rows_steps`` and ``spectrum_amp_phase_steps`` repeat the register
-core's arithmetic step by step in PyTorch (thread, register and
+``fft_rows_steps``, ``spectrum_amp_phase_steps`` and
+``spectrum_twosided_steps`` repeat the register core's arithmetic step by
+step in PyTorch (thread, register and
 shared-memory address included): the tests hold them against the JAX
 package here and the kernels against them on the card.
 
@@ -84,6 +88,7 @@ __all__ = [
     "pass_twiddles",
     "exchange_pad",
     "spectrum_amp_phase_steps",
+    "spectrum_twosided_steps",
     "framed_spectrum_amp_phase_steps",
     "fft_cols_cuda",
     "fft_cols_plain",
@@ -146,8 +151,8 @@ def _dft64(n: int) -> Tuple[np.ndarray, np.ndarray]:
 def dft_table(n: int) -> Tuple[np.ndarray, np.ndarray]:
     """The n-entry table every kernel's twiddles come from, rounded once to
     f32. K3's direct DFT indexes all of it by (k*j) mod n; the radix-2 core
-    (K3, K5-K7) reads the first n/2 entries, bit-equal to the Stockham
-    twiddles of size n; K1 and K4 read W_n^k, k < n/2, in the untangle;
+    (K6, K7) reads the first n/2 entries, bit-equal to the Stockham
+    twiddles of size n; K1, K4 and K3 read W_n^k, k < n/2, in the untangle;
     :func:`pass_twiddles` gathers the register core's passes from it."""
     c, s = _dft64(n)
     return c.astype(np.float32), s.astype(np.float32)
@@ -356,15 +361,14 @@ def fft_rows_steps(re: torch.Tensor, im: torch.Tensor, inverse: bool = False
     return (oim, ore) if inverse else (ore, oim)
 
 
-def spectrum_amp_phase_steps(x: torch.Tensor, n: int, window: str,
-                             with_phase: bool = True, parts: bool = False):
-    """K1's and K4's per-frame arithmetic step by step in PyTorch, for the
-    tests (``csrc/onesided.cuh``): the windowed real frame [B, n] packed as
-    z[j] = xw[2j] + i*xw[2j+1], the register core at n/2 points, then the
-    untangle 2X[k] = (Z[k] + conj Z[n/2-k]) - i*W_n^k*(Z[k] - conj Z[n/2-k])
-    scaled by 1/n; DC = Re Z[0] + Im Z[0] and Nyquist = Re Z[0] - Im Z[0]
-    with imaginary part +0.0. ``parts=True`` returns the unscaled bins
-    (re, im) of X instead of (amplitude, phase)."""
+def _packed_real_bins_steps(x: torch.Tensor, n: int, window: str):
+    """The per-frame body of ``csrc/onesided.cuh`` up to its stores, step by
+    step: the windowed real frame [B, n] packed as z[j] = xw[2j] +
+    i*xw[2j+1], the register core at n/2 points, then the untangle. Returns
+    (re, im) over bins 0..n/2 as the kernel holds them: 2*X[k] between the
+    edges, by (Z[k] + conj Z[n/2-k]) - i*W_n^k*(Z[k] - conj Z[n/2-k]);
+    DC = Re Z[0] + Im Z[0] and Nyquist = Re Z[0] - Im Z[0], unscaled, with
+    imaginary part +0.0."""
     half = n // 2
     regs = points_per_thread(half)
     lanes = half // regs
@@ -397,6 +401,18 @@ def spectrum_amp_phase_steps(x: torch.Tensor, n: int, window: str,
     re2[..., half] = xr[0][..., 0] - xi[0][..., 0]
     im2[..., 0] = 0.0
     im2[..., half] = 0.0
+    return re2, im2
+
+
+def spectrum_amp_phase_steps(x: torch.Tensor, n: int, window: str,
+                             with_phase: bool = True, parts: bool = False):
+    """K1's and K4's per-frame arithmetic step by step in PyTorch, for the
+    tests (``csrc/onesided.cuh`` with its one-sided store): the packed real
+    transform of :func:`_packed_real_bins_steps`, every bin scaled by 1/n
+    (the untangle gives 2*X between the edges). ``parts=True`` returns the
+    unscaled bins (re, im) of X instead of (amplitude, phase)."""
+    half = n // 2
+    re2, im2 = _packed_real_bins_steps(x, n, window)
     if parts:
         re2[..., 1:half] *= 0.5
         im2[..., 1:half] *= 0.5
@@ -405,6 +421,31 @@ def spectrum_amp_phase_steps(x: torch.Tensor, n: int, window: str,
     amp[..., 0] = re2[..., 0].abs() * (1.0 / n)
     amp[..., half] = re2[..., half].abs() * (1.0 / n)
     return (amp, torch.atan2(im2, re2)) if with_phase else (amp, None)
+
+
+def spectrum_twosided_steps(x: torch.Tensor, n: int, window: str) -> torch.Tensor:
+    """K3's arithmetic step by step in PyTorch, for the tests
+    (``csrc/spectrum_twosided.cu``), [B, n] -> [B, n]. A power-of-two n
+    above 128: the packed real transform of K1 with the two-sided store,
+    |X|/n at the edges, (0.5/n)*|2X| between them, written at k and at
+    n - k. A power-of-two n up to 128: the register core on the windowed
+    row with a zero imaginary plane, then |X|/n. Any other n: the direct
+    DFT, which :func:`spectrum_twosided_plain` already is."""
+    if not is_power_of_two(n):
+        return spectrum_twosided_plain(x, n, window)
+    if n <= MAX_DFT_N:
+        xw = x * create_window(window, n, dtype=x.dtype, device=x.device)
+        re, im = fft_rows_steps(xw, torch.zeros_like(xw))
+        return torch.sqrt(re * re + im * im) * (1.0 / n)
+    half = n // 2
+    re2, im2 = _packed_real_bins_steps(x, n, window)
+    amp = torch.empty(x.shape[:-1] + (n,), dtype=x.dtype, device=x.device)
+    inner = torch.sqrt(re2 * re2 + im2 * im2)[..., 1:half] * (0.5 / n)
+    amp[..., 1:half] = inner
+    amp[..., half + 1:] = inner.flip(-1)
+    amp[..., 0] = re2[..., 0].abs() * (1.0 / n)
+    amp[..., half] = re2[..., half].abs() * (1.0 / n)
+    return amp
 
 
 def framed_spectrum_amp_phase_steps(x: torch.Tensor, n: int, hop: int,
@@ -602,11 +643,16 @@ def _launch_spectrum_twosided(x: torch.Tensor, n: int, window: str):
         return amp
     lib = _build.library()
     cos, sin, win = _device_tables(n, window, x.device)
+    # A power-of-two n runs the register core: at n/2 points on the packed
+    # frame above 128 points, at n points up to it.
+    points = None if not is_power_of_two(n) else (n // 2 if n > MAX_DFT_N else n)
+    tw = None if points is None else _device_pass_twiddles(points, x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = lib.spectrum_twosided_f32(
             x.data_ptr(), win.data_ptr(), amp.data_ptr(), cos.data_ptr(),
-            sin.data_ptr(), batch, n, stream)
+            sin.data_ptr(), None if tw is None else tw.data_ptr(),
+            0 if points is None else _plan_code_of(points), batch, n, stream)
     _build.check(lib, code, "spectrum_twosided")
     LAUNCHES["spectrum_twosided"] += 1
     return amp

@@ -12,9 +12,11 @@ Routes, as in the JAX package with CUDA in place of the TPU:
 * ``overlap_save`` frames the signal into power-of-two blocks of n that
   overlap by k-1 samples. A CUDA float32/bfloat16 signal with
   128 < n <= 16384 (impl "auto" or "cuda") runs the filter spectrum H
-  through the row-FFT kernel K2 and every block through the fused
-  convolution kernel (K5b for two or more blocks, K5a for one;
-  ``ops/conv_cuda.py``). Everything else (float64, n <= 128, blocks above
+  through the row-FFT kernel K2 and the signal through the fused
+  convolution kernel, which reads each block at its offset in the signal
+  and writes only its valid samples (K5b for two or more blocks, K5a for
+  one; ``ops.conv_cuda.overlap_save_cuda``): no padded copy, no frame
+  tensor, no output copy. Everything else (float64, n <= 128, blocks above
   16384, the CPU) runs fft -> x H -> ifft through ``ops.dispatch``.
 * ``auto`` takes overlap-save once k >= 64 and the signal is at least 4k
   long, the JAX package's rule.
@@ -32,7 +34,7 @@ import torch
 from ..core.complex import (ComplexArray, ensure_float, is_power_of_two,
                             next_power_of_two)
 from ..core.device import resolve_device, to_tensor
-from .conv_cuda import circular_convolve_cuda
+from .conv_cuda import overlap_save_cuda
 from .dispatch import fft as _fft, get_fft_impl, ifft as _ifft
 from ._tf32 import full_float32
 from .fft_cuda import MAX_DFT_N, MAX_ROWS_N
@@ -125,28 +127,22 @@ def overlap_save_filter(x, taps, block: Optional[int] = None,
     # would be valid duplicates, so the output is lfilter's either way.
     o = k - 1
     hop = n - o
+    h = torch.zeros(n, dtype=x.dtype, device=x.device)
+    h[:k] = taps
+    if _use_kernel(x.device.type, x.dtype, n):
+        # H through K2 (natural order), then one fused kernel on the signal
+        # as it lies: block j is read at j*hop - o, zeros outside the row.
+        return overlap_save_cuda(x, _fft(h, precision=precision), n, o)
     n_blocks = -(-length // hop)
-
     # Left-pad with the o-sample zero history + right-pad to whole blocks;
     # frame j is xp[j*hop : j*hop + n].
     xp = torch.nn.functional.pad(x, (o, n_blocks * hop - length))
     frames = xp.unfold(-1, n, hop)                    # [..., n_blocks, n]
-
-    h = torch.zeros(n, dtype=x.dtype, device=x.device)
-    h[:k] = taps
-    if _use_kernel(x.device.type, x.dtype, n):
-        # H through K2 (natural order), then one fused kernel per call.
-        # The frames are a copy of the padded signal (or a view of it, when
-        # hop = n), dead after the kernel, so it writes into them.
-        hspec = _fft(h, precision=precision)
-        y = circular_convolve_cuda(frames.contiguous(), hspec, n,
-                                   precision=precision, donate=True)
-    else:
-        hspec = _fft(h)
-        fspec = _fft(frames)
-        prod_re = fspec.real * hspec.real - fspec.imag * hspec.imag
-        prod_im = fspec.real * hspec.imag + fspec.imag * hspec.real
-        y = _ifft(ComplexArray(prod_re, prod_im)).real
+    hspec = _fft(h)
+    fspec = _fft(frames)
+    prod_re = fspec.real * hspec.real - fspec.imag * hspec.imag
+    prod_im = fspec.real * hspec.imag + fspec.imag * hspec.real
+    y = _ifft(ComplexArray(prod_re, prod_im)).real
     # First o samples of each block are circular garbage.
     y = y[..., o:]
     y = y.reshape(y.shape[:-2] + (n_blocks * hop,))

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time the PyTorch port's row kernels (K2 row FFT, K1 one-sided spectrum,
-K4 framed spectrogram) of the checkout at --root on one CUDA card, so that
-two checkouts can be compared on the same card, one after the other:
+K4 framed spectrogram, K3 two-sided spectrum, K5a/K5b circular convolution)
+and the FIR path of the checkout at --root on one CUDA card, so that two
+checkouts can be compared on the same card, one after the other:
 
     python3 scripts/torch_kernel_times.py --root /path/to/parent
     python3 scripts/torch_kernel_times.py --root .
@@ -14,13 +15,17 @@ for the host's launch work, and queued behind a device spin ("queued_ms"),
 where the host has enqueued every launch before the first one runs, so
 the device's own time shows. The row FFT is timed beside torch.fft.fft on
 the same points as one complex64 tensor (the library yardstick; the port
-never calls it). Prints the card (nvidia-smi name and power limit) and one
-JSON object per shape. Imports nothing of JAX.
+never calls it). Only the public wrappers are called, so a checkout whose C
+entries differ is timed the same way. K1's and K4's rows carry a digest of
+their output on the seeded input: two checkouts whose digests agree give
+bit-equal results there. Prints the card (nvidia-smi name and power limit)
+and one JSON object per shape. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -31,6 +36,10 @@ import numpy as np
 K2_SHAPES = ((16384, 1024), (16384, 128), (1024, 16384), (65536, 1024), (1, 1024))
 K1_SHAPES = ((16384, 1024), (4096, 4096))
 K4_SHAPE = (128, 480000, 4096, 1024)     # [channels, samples], n, hop
+K3_SHAPES = ((59520, 4096), (16384, 128))    # config 2's frames; the small-n gate
+K5_SHAPES = ((68480, 1024), (1024, 16384), (1, 1024))   # the FIR path's blocks; K5a
+FIR_SHAPE = (128, 480000)                # the FIR path's signal
+FIR_TAPS, FIR_CUTOFF = 127, 0.2          # a 127-tap windowed sinc
 SPIN_CYCLES = 6_000_000                  # a few ms of device spin
 
 
@@ -46,7 +55,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_kernel_times: needs one CUDA card", file=sys.stderr)
         return 1
-    from pragma_dsp_tpu_torch.ops import fft_cuda
+    from pragma_dsp_tpu_torch.ops import conv_cuda, dispatch, fft_cuda, fir_filter
+    from pragma_dsp_tpu_torch.ops.polyphase import design_lowpass
 
     dev = torch.device("cuda", 0)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -71,9 +81,15 @@ def main() -> int:
             per.append(a.elapsed_time(b) / args.inner)
         return float(np.median(per))
 
-    def report(kernel: str, shape, fn, library=None) -> None:
+    def digest(out) -> str:
+        first = out[0] if isinstance(out, tuple) else out
+        return hashlib.sha256(first.cpu().numpy().tobytes()).hexdigest()[:16]
+
+    def report(kernel: str, shape, fn, library=None, with_digest=False) -> None:
         row = {"kernel": kernel, "shape": list(shape), "ms": timed(fn, False),
                "queued_ms": timed(fn, True)}
+        if with_digest:
+            row["digest"] = digest(fn())
         if library is not None:
             row["library_ms"], row["library_queued_ms"] = timed(library, False), timed(library, True)
         print(json.dumps(row), flush=True)
@@ -87,15 +103,32 @@ def main() -> int:
     for batch, n in K1_SHAPES:
         x = torch.randn((batch, n), generator=gen, device=dev)
         report("spectrum_onesided amp+phase", (batch, n),
-               lambda: fft_cuda.spectrum_amp_phase_cuda(x, n, "hann"))
+               lambda: fft_cuda.spectrum_amp_phase_cuda(x, n, "hann"), with_digest=True)
         report("spectrum_onesided amp", (batch, n),
                lambda: fft_cuda.spectrum_amplitude_cuda(x, n, "hann"))
     channels, length, n, hop = K4_SHAPE
     sig = torch.randn((channels, length), generator=gen, device=dev)
     report("stft_onesided amp", K4_SHAPE,
-           lambda: fft_cuda.framed_spectrum_amplitude_cuda(sig, n, hop, "hann"))
+           lambda: fft_cuda.framed_spectrum_amplitude_cuda(sig, n, hop, "hann"),
+           with_digest=True)
     report("stft_onesided amp+phase", K4_SHAPE,
            lambda: fft_cuda.framed_spectrum_amp_phase_cuda(sig, n, hop, "hann"))
+    del sig
+    for batch, n in K3_SHAPES:
+        x = torch.randn((batch, n), generator=gen, device=dev)
+        report("spectrum_twosided", (batch, n),
+               lambda: fft_cuda.spectrum_amplitude_cuda(x, n, "hann", "two"))
+    taps = torch.from_numpy(design_lowpass(FIR_TAPS, FIR_CUTOFF).astype(np.float32)).to(dev)
+    for batch, n in K5_SHAPES:
+        x = torch.randn((batch, n), generator=gen, device=dev)
+        h = torch.zeros(n, device=dev)
+        h[:FIR_TAPS] = taps
+        hs = dispatch.fft(h)
+        report("osconv_pair" if batch > 1 else "osconv", (batch, n),
+               lambda: conv_cuda.circular_convolve_cuda(x, hs, n))
+    del x
+    sig = torch.randn(FIR_SHAPE, generator=gen, device=dev)
+    report(f"fir_filter {FIR_TAPS} taps", FIR_SHAPE, lambda: fir_filter(sig, taps))
     return 0
 
 

@@ -1,5 +1,5 @@
 """K1-K7 on a CUDA card, against float64 numpy and their plain versions
-(K2, K1 and K4 also at every size against their step-by-step versions),
+(K1-K5 also against their step-by-step versions),
 under the bench.py gates (>=105 dB; >=120 dB at n <= 128), and K4
 bit-equal to K1 on the same frames; K5a/K5b (circular convolution) at
 >=125 dB and K6 (the channelizer) at >=105 dB, with their routes' launch
@@ -22,7 +22,9 @@ from pragma_dsp_tpu_torch.core import ComplexArray
 from pragma_dsp_tpu_torch.ops import (circular_convolve_cuda, dispatch, fft_cuda,
                                       fir_filter, irfft, pfb_channelize,
                                       pfb_channelize_frames, pfb_taps, rfft)
-from pragma_dsp_tpu_torch.ops.conv_cuda import circular_convolve_plain
+from pragma_dsp_tpu_torch.ops.conv_cuda import (circular_convolve_plain,
+                                                circular_convolve_steps,
+                                                overlap_save_cuda, overlap_save_plain)
 from pragma_dsp_tpu_torch.ops.fft_big import (big_permuted_to_natural, big_split,
                                               fft_big_permuted,
                                               ifft_big_from_permuted)
@@ -130,7 +132,8 @@ def test_uncovered_cuda_sizes_raise(dev):
 
 
 @pytest.mark.parametrize("n,sides", [(100, "one"), (128, "one"), (128, "two"),
-                                     (7, "two"), (4096, "two")])
+                                     (7, "two"), (4096, "two"), (2, "two"),
+                                     (16, "two"), (256, "two"), (16384, "two")])
 def test_k3_on_cuda(dev, n, sides):
     rng = np.random.default_rng(3)
     t = np.arange(n) / 48000.0
@@ -153,6 +156,11 @@ def test_k3_on_cuda(dev, n, sides):
     assert got.shape == ref.shape
     assert _snr(ref, got) >= gate
     assert _snr(plain.cpu().numpy(), got) >= gate
+    if sides == "two":
+        steps = fft_cuda.spectrum_twosided_steps(xd.double(), n, "hann")
+        assert _snr(steps.cpu().numpy(), got) >= 125.0
+        if n > 128:     # one magnitude, two stores
+            assert torch.equal(amp[:, 1:n // 2], amp[:, n // 2 + 1:].flip(-1))
 
 
 @pytest.mark.parametrize("n,hop", [(256, 128), (4096, 1024)])
@@ -200,6 +208,9 @@ def test_k5_on_cuda(dev, batch, n):
     got = y.cpu().numpy()
     assert _snr(ref, got) >= 125.0
     assert _snr(circular_convolve_plain(xd, hs, n).cpu().numpy(), got) >= 125.0
+    steps = circular_convolve_steps(xd.double(), ComplexArray(hs.real.double(),
+                                                              hs.imag.double()), n)
+    assert _snr(steps.cpu().numpy(), got) >= 125.0
     donated = xd.clone()
     out = circular_convolve_cuda(donated, hs, n, donate=True)
     assert out.data_ptr() == donated.data_ptr() and torch.equal(out, y)
@@ -220,6 +231,26 @@ def test_fir_routes_on_cuda(dev):
         assert _snr(ref, got) >= 110.0, method
     one = fir_filter(xd[0, :300], taps, "overlap_save").cpu().numpy()
     assert _snr(ref[0, :300], one) >= 110.0
+    # The route hands K5 the signal itself: one launch, no frame tensor, and
+    # the same numbers as K5b on the materialised blocks.
+    n, o = 1024, 126
+    h = torch.zeros(n, device=dev)
+    h[:127] = torch.from_numpy(taps.astype(np.float32)).to(dev)
+    hs = dispatch.fft(h)
+    hop, nb = n - o, -(-20000 // (n - o))
+    blocks = torch.nn.functional.pad(xd, (o, nb * hop - 20000)).unfold(-1, n, hop)
+    framed = circular_convolve_cuda(blocks.contiguous(), hs, n)[..., o:].reshape(4, -1)
+    on_signal = overlap_save_cuda(xd, hs, n, o)
+    assert torch.equal(on_signal, framed[:, :20000])
+    assert torch.equal(on_signal, fir_filter(xd, taps, "overlap_save"))
+    plain = overlap_save_plain(xd.double(), ComplexArray(hs.real.double(),
+                                                         hs.imag.double()), n, o)
+    assert _snr(plain.cpu().numpy(), on_signal.cpu().numpy()) >= 125.0
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fir_filter(xd, taps, "overlap_save")
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base <= 1.1 * xd.numel() * 4 + (1 << 16)
     # bfloat16 rides the same kernels, cast to float32 around them. The
     # input, H and the output are each rounded to 8 mantissa bits (about
     # 48 dB apiece; the CPU's all-bfloat16 route reads 39 dB here).

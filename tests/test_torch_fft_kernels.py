@@ -304,6 +304,8 @@ def test_launch_counters_stay_zero_on_cpu():
                                      dispatch.fft(torch.zeros(256)), 256)
     z = torch.zeros(4, 128)
     pfb_cuda.pfb_channelize_frames_cuda(ComplexArray(z, z), torch.ones(256), 128)
+    conv_cuda.overlap_save_cuda(torch.zeros(2, 2048), dispatch.fft(torch.zeros(1024)),
+                                1024, 126)
     fir_filter(torch.zeros(2, 2048), torch.ones(127))
     fft_cuda.fft_cols_cuda(torch.zeros(2, 256, 4), torch.zeros(2, 256, 4))
     dispatch.fft(torch.zeros(256, 128), axis=-2, impl="cuda")
@@ -348,7 +350,7 @@ def test_build_is_keyed_by_source_hash(tmp_path, monkeypatch):
         "fft_cols.cu", "fft_rows.cu", "osconv.cu", "pfb.cu", "spectrum_onesided.cu",
         "spectrum_twosided.cu", "stft_onesided.cu"]
     assert set(_build._SIGNATURES) == {
-        "fft_cols_f32", "fft_rows_f32", "osconv_f32", "pfb_f32",
+        "fft_cols_f32", "fft_rows_f32", "osconv_f32", "osconv_signal_f32", "pfb_f32",
         "spectrum_onesided_f32", "spectrum_twosided_f32", "stft_onesided_f32"}
 
 

@@ -1,8 +1,9 @@
-"""The register-resident FFT core of K2, K1 and K4 (csrc/fft_regs.cuh,
+"""The register-resident FFT core of K1-K5 (csrc/fft_regs.cuh,
 csrc/onesided.cuh) on the CPU: its plan, its pass tables, its exchange
 layout, and its arithmetic repeated step by step in PyTorch
-(``fft_rows_steps``, ``spectrum_amp_phase_steps``) against the JAX package,
-float64 numpy and the plain versions; and the device rule (host input goes
+(``fft_rows_steps``, ``spectrum_amp_phase_steps``,
+``spectrum_twosided_steps``, ``circular_convolve_steps``) against the JAX
+package, float64 numpy and the plain versions; and the device rule (host input goes
 to the default device, the tests ask for the CPU). The kernels themselves
 run only on a CUDA card: tests/test_torch_cuda.py and chip_smoke.py hold
 them against these same step-by-step versions there."""
@@ -16,12 +17,14 @@ import torch
 
 import pragma_dsp_tpu_torch as port
 from pragma_dsp_tpu.core import complex as jcomplex
+from pragma_dsp_tpu.ops.conv_pallas import circular_convolve_pallas
 from pragma_dsp_tpu.public import spectrum as jspectrum
 from pragma_dsp_tpu.utils.fixtures import snr_db
 from pragma_dsp_tpu_torch import set_default_device, spectrum
 from pragma_dsp_tpu_torch.core import ComplexArray, as_complex_array, device as pdevice
 from pragma_dsp_tpu_torch.entry import entry
-from pragma_dsp_tpu_torch.ops import dispatch, fft_cuda, fir_filter, pfb_channelize
+from pragma_dsp_tpu_torch.ops import (conv_cuda, dispatch, fft_cuda, fir_filter,
+                                      pfb_channelize)
 from pragma_dsp_tpu_torch.stream import (spectrogram_amplitude, stft,
                                          stft_stream_init)
 from pragma_dsp_tpu_torch.xform import create_window, window_values
@@ -309,6 +312,138 @@ def test_framed_contract_unchanged():
     assert not fft_cuda.framed_spectrum_supported(4096, 1024, "two")
     with pytest.raises(ValueError, match="framed spectrum needs one-sided pow-2"):
         fft_cuda.framed_spectrum_amplitude_cuda(torch.zeros(4096), 1024, 100)
+
+
+# ── K3's arithmetic step by step ─────────────────────────────────────
+
+# Every route of K3: the packed real transform (n > 128), the complex core
+# on a zero imaginary plane (power-of-two n <= 128), the direct DFT (other n).
+TWOSIDED_SIZES = [2, 16, 64, 128, 7, 100] + FRAME_SIZES
+TWOSIDED_INTERPRET_MAX_N = 4096
+
+
+def _twosided_oracle(x, window, n):
+    return np.abs(np.fft.fft(x.astype(np.float64) * window_values(window, n), axis=-1)) / n
+
+
+@pytest.mark.parametrize("window", ["hann", "rect"])
+@pytest.mark.parametrize("n", TWOSIDED_SIZES)
+def test_twosided_steps_match_plain_and_numpy_f64(n, window):
+    x = np.random.default_rng(n).standard_normal((3, n))
+    got = fft_cuda.spectrum_twosided_steps(torch.from_numpy(x), n, window)
+    assert got.dtype == torch.float64 and got.shape == (3, n)
+    plain = fft_cuda.spectrum_twosided_plain(torch.from_numpy(x), n, window)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=0, atol=1e-10)
+    np.testing.assert_allclose(got.numpy(), _twosided_oracle(x, window, n), rtol=0,
+                               atol=1e-10)
+
+
+@pytest.mark.parametrize("n", TWOSIDED_SIZES)
+def test_twosided_steps_match_jax_twosided_f32(n):
+    """The float32 bound of tests/test_pallas_fft.py, 2e-6 on the amplitude.
+    The JAX side is the Pallas kernel in interpret mode where that is quick,
+    and the float64 oracle under the 105 dB gate (120 dB to n = 128) at
+    every size."""
+    t = np.arange(n) / 48000.0
+    x = (0.8 * np.sin(2 * np.pi * 1500.0 * t + 0.7)
+         + 0.01 * np.random.default_rng(n).standard_normal((2, n))).astype(np.float32)
+    got = fft_cuda.spectrum_twosided_steps(torch.from_numpy(x), n, "hann")
+    assert got.dtype == torch.float32 and got.shape == (2, n)
+    if n <= TWOSIDED_INTERPRET_MAX_N:
+        ref = np.asarray(jpallas.spectrum_amplitude_pallas(
+            jnp.asarray(x), n, "hann", "two", interpret=True, precision="highest"))
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=2e-6)
+    plain = fft_cuda.spectrum_twosided_plain(torch.from_numpy(x), n, "hann")
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=0, atol=2e-6)
+    assert snr_db(_twosided_oracle(x, "hann", n), got.numpy()) >= (120.0 if n <= 128
+                                                                  else 105.0)
+
+
+@pytest.mark.parametrize("n", FRAME_SIZES)
+def test_twosided_steps_mirror_and_share_k1s_bins(n):
+    """Above 128 points K3 is K1's body with another store: bins k and
+    n - k are one value, and bins 0..n/2 are K1's amplitudes with the
+    one-sided doubling taken back (exact: a factor of two)."""
+    x = torch.from_numpy(np.random.default_rng(n).standard_normal((3, n)).astype(np.float32))
+    two = fft_cuda.spectrum_twosided_steps(x, n, "hann")
+    assert torch.equal(two[:, 1:n // 2], two[:, n // 2 + 1:].flip(-1))
+    one, _ = fft_cuda.spectrum_amp_phase_steps(x, n, "hann", with_phase=False)
+    undo = torch.full((n // 2 + 1,), 0.5)
+    undo[0] = undo[-1] = 1.0
+    assert torch.equal(two[:, :n // 2 + 1], one * undo)
+
+
+# ── K5's arithmetic step by step ─────────────────────────────────────
+
+CONV_INTERPRET_SHAPES = [(1, 256), (3, 256), (3, 1024)]
+
+
+def _filter_spectrum(n, dtype):
+    h = np.zeros(n, dtype)
+    h[:127] = np.hamming(127) / np.hamming(127).sum()
+    return h, dispatch.fft(torch.from_numpy(h))
+
+
+def _circular_oracle(x, h):
+    return np.real(np.fft.ifft(np.fft.fft(x.astype(np.float64), axis=-1)
+                               * np.fft.fft(h.astype(np.float64)), axis=-1))
+
+
+@pytest.mark.parametrize("batch", [1, 3, 4])
+@pytest.mark.parametrize("n", FRAME_SIZES)
+def test_conv_steps_match_plain_and_numpy_f64(n, batch):
+    """One frame (K5a), an odd batch (a zero partner) and whole pairs."""
+    x = np.random.default_rng(n + batch).standard_normal((batch, n))
+    h, hs = _filter_spectrum(n, np.float64)
+    got = conv_cuda.circular_convolve_steps(torch.from_numpy(x), hs, n)
+    assert got.dtype == torch.float64 and got.shape == (batch, n)
+    plain = conv_cuda.circular_convolve_plain(torch.from_numpy(x), hs, n)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=0, atol=1e-10)
+    np.testing.assert_allclose(got.numpy(), _circular_oracle(x, h), rtol=0, atol=1e-10)
+
+
+@pytest.mark.parametrize("batch", [1, 3, 4])
+@pytest.mark.parametrize("n", FRAME_SIZES)
+def test_conv_steps_f32_hold_the_conv_gate(n, batch):
+    """float32 against the float64 oracle under the gate of
+    tests/test_conv_pallas.py:69 (125 dB), and against the plain version."""
+    x = np.random.default_rng(n + batch).standard_normal((batch, n)).astype(np.float32)
+    h, hs = _filter_spectrum(n, np.float32)
+    got = conv_cuda.circular_convolve_steps(torch.from_numpy(x), hs, n)
+    assert got.dtype == torch.float32 and got.shape == (batch, n)
+    assert snr_db(_circular_oracle(x, h), got.numpy()) >= 125.0
+    plain = conv_cuda.circular_convolve_plain(torch.from_numpy(x), hs, n)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=0, atol=2e-6)
+
+
+@pytest.mark.parametrize("batch,n", CONV_INTERPRET_SHAPES)
+def test_conv_steps_match_pallas_interpret(batch, n):
+    """The JAX kernels in interpret mode on the same seeded frames and taps:
+    K5a (batch 1) and K5b (an odd batch)."""
+    x = np.random.default_rng(batch).standard_normal((batch, n)).astype(np.float32)
+    h, hs = _filter_spectrum(n, np.float32)
+    jh = jpallas.fft_pallas_permuted(
+        jcomplex.ComplexArray(jnp.asarray(h), jnp.zeros(n, jnp.float32)),
+        interpret=True, precision="highest")
+    ref = np.asarray(circular_convolve_pallas(jnp.asarray(x), jh, n, interpret=True,
+                                              precision="highest"))
+    got = conv_cuda.circular_convolve_steps(torch.from_numpy(x), hs, n)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=2e-6)
+    assert snr_db(_circular_oracle(x, h), got.numpy()) >= 125.0
+
+
+def test_conv_steps_keep_shape_and_input():
+    """Leading batch axes are kept and the frames are not written."""
+    n = 512
+    x = np.random.default_rng(9).standard_normal((2, 3, n)).astype(np.float32)
+    _, hs = _filter_spectrum(n, np.float32)
+    xt = torch.from_numpy(x.copy())
+    got = conv_cuda.circular_convolve_steps(xt, hs, n)
+    assert got.shape == (2, 3, n)
+    np.testing.assert_array_equal(xt.numpy(), x)
+    rows = conv_cuda.circular_convolve_steps(xt.reshape(-1, n)[:5], hs, n)
+    # pairs are independent: the first four rows do not feel the fifth's partner
+    assert torch.equal(rows[:4], got.reshape(-1, n)[:4])
 
 
 # ── the device rule ──────────────────────────────────────────────────

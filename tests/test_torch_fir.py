@@ -8,6 +8,8 @@ against the JAX package on the same seeded numpy inputs.
 * the committed fixture tests/fixtures/dsp/fir.json.gz (>= 130 dB);
 * float32: the plain version of K5a/K5b against the JAX Pallas kernels run
   in interpret mode, and fir_filter against the JAX float32 routes;
+* the plain version of the kernel route's signal-in entry against
+  overlap_save_filter and scipy's lfilter;
 * the K5b pairing fault for a non-Hermitian H, shown in numpy.
 
 The kernels themselves run only on a CUDA card (tests/test_torch_cuda.py,
@@ -31,7 +33,8 @@ from pragma_dsp_tpu_torch.core import ComplexArray
 from pragma_dsp_tpu_torch.ops import (FirState, circular_convolve_cuda,
                                       design_lowpass, dispatch, fir_filter, fir_step,
                                       fir_stream_init, overlap_save_filter)
-from pragma_dsp_tpu_torch.ops.conv_cuda import circular_convolve_plain
+from pragma_dsp_tpu_torch.ops.conv_cuda import (circular_convolve_plain,
+                                                overlap_save_cuda, overlap_save_plain)
 from pragma_dsp_tpu_torch.utils import fir_state_from_numpy, fir_state_to_numpy
 from pragma_dsp_tpu_torch import set_default_device
 
@@ -301,6 +304,60 @@ def test_circular_convolve_plain_donate_and_shape():
     b = circular_convolve_cuda(x.clone(), hs, n, donate=True)
     assert a.shape == (2, 3, n) and torch.equal(a, b)
     assert torch.equal(a, circular_convolve_plain(x, hs, n))
+
+
+# (taps, block, signal length): a length that is no multiple of the hop, one
+# that is, one block, and the smallest block
+SIGNAL_IN_CASES = [(127, 1024, 3000), (127, 1024, 3 * 898), (127, 1024, 300),
+                   (33, 256, 5000), (1, 256, 700)]
+
+
+@pytest.mark.parametrize("k,n,length", SIGNAL_IN_CASES)
+def test_overlap_save_on_the_signal_equals_the_filter_f64(k, n, length):
+    """The plain version of the kernel route's signal-in entry (blocks read
+    at their offset, only valid samples written) against
+    overlap_save_filter's present result and scipy's lfilter."""
+    rng = _rng(k + length)
+    x = rng.standard_normal((2, length))
+    taps = rng.standard_normal(k) / k
+    h = torch.zeros(n, dtype=torch.float64)
+    h[:k] = _t(taps)
+    got = overlap_save_cuda(_t(x), dispatch.fft(h), n, k - 1)
+    assert got.dtype == torch.float64 and got.shape == (2, length)
+    assert torch.equal(got, overlap_save_plain(_t(x), dispatch.fft(h), n, k - 1))
+    want = overlap_save_filter(_t(x), _t(taps), block=n)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=F64_TOL)
+    np.testing.assert_allclose(got.numpy(), sps.lfilter(taps, 1.0, x, axis=-1),
+                               rtol=0, atol=1e-9)
+
+
+def test_overlap_save_on_the_signal_f32_and_shapes():
+    """float32 under the FIR gate; leading axes kept; an overlap longer than
+    the taps need drops valid samples only."""
+    rng = _rng(17)
+    x = rng.standard_normal((2, 3, 2500)).astype(np.float32)
+    taps = sps.firwin(127, 0.2).astype(np.float32)
+    h = torch.zeros(1024)
+    h[:127] = _t(taps)
+    hs = dispatch.fft(h)
+    got = overlap_save_cuda(_t(x), hs, 1024, 126)
+    ref = sps.lfilter(taps.astype(np.float64), 1.0, x.astype(np.float64), axis=-1)
+    assert got.dtype == torch.float32 and got.shape == (2, 3, 2500)
+    assert_snr(ref, got.numpy(), 120, "signal-in overlap-save f32 vs lfilter")
+    wider = overlap_save_cuda(_t(x), hs, 1024, 200)
+    np.testing.assert_allclose(wider.numpy(), got.numpy(), rtol=0, atol=F32_TOL)
+
+
+def test_overlap_save_on_the_signal_input_rules():
+    x, hs = torch.zeros(2, 500), dispatch.fft(torch.zeros(256))
+    with pytest.raises(ValueError, match="power-of-two n > 128"):
+        overlap_save_cuda(x, dispatch.fft(torch.zeros(128)), 128, 10)
+    with pytest.raises(ValueError, match="power-of-two n > 128"):
+        overlap_save_cuda(x, hs, 300, 10)
+    for overlap in (-1, 256):
+        with pytest.raises(ValueError, match="overlap must lie in 0..255"):
+            overlap_save_cuda(x, hs, 256, overlap)
+    assert overlap_save_cuda(torch.zeros(2, 0), hs, 256, 10).shape == (2, 0)
 
 
 @pytest.mark.parametrize("method", ["direct", "overlap_save"])
