@@ -41,11 +41,16 @@ Phases (one line each; any failed gate exits non-zero):
      entry of K5 once and materialises no frames: bit-equal to, and its peak
      memory beside, the route over materialised frames), and times;
  13. config 5 (bench.py's 256-channel PFB) and C = 128, 4096 against the
-     float64 oracle, frames/flat/streaming bit-equal, launch counts, and
-     K6 against its plain version on 1e8 complex samples;
+     float64 oracle, frames/flat/streaming bit-equal, launch counts, K6
+     against its step-by-step version in float64 at every C from 128 to
+     16384 (1, 3 and 8 taps a branch, three batch rows, a ragged last
+     block, fewer frames than taps), and K6 against its plain version on
+     1e8 complex samples;
  14. K7 (column FFT) forward and inverse, with and without the folded grid,
      against float64 numpy, its roundtrip and its plain version in float64,
-     a ragged width, donate in place;
+     a ragged width, donate in place, and at every n from 256 to 4096
+     (batch 3, a ragged and a whole number of tiles) against its
+     step-by-step version in float64;
  15. the large FFT at full width: 2^20 points (K7 then K2) against float64
      numpy, its roundtrip, 2^16, 2^21 (2^24 printed), dispatch over the last
      axis and axis 0, the 2^15 four-step route with the process-wide matmul
@@ -57,7 +62,8 @@ Phases (one line each; any failed gate exits non-zero):
      natural-order FFT, the roundtrip, the plain versions, torch.fft.fft as
      the library yardstick (never on a path; K7 with and without the fold
      beside torch.fft.fft with and without the grid multiply), the tile
-     widths, and axis -2 through K7 against movedim + K2;
+     widths at n = 1024 and n = 256, and axis -2 through K7 against
+     movedim + K2;
  18. each kernel's time beside its bound (bytes over 3.35 TB/s or operations
      over 67 TFLOP/s, whichever is larger; K1, K3 and K4 counted as real-input
      transforms), its plain version and the library.
@@ -114,12 +120,19 @@ C5_MORE = (128, 4096)
 C5_TONE = 37             # a tone at +37/256 of the rate lands in channel 37
 C5_CHUNK_FRAMES = 64     # streaming chunks of the config-5 stream
 C5_WIDE = 10 ** 8        # 1 s of 100 Msps IQ
+K6_ALL_C = tuple(1 << k for k in range(7, 15))    # every C K6 takes
+K6_ALL_TPB = (1, 3, 8)   # taps a branch in K6's sweep
+K6_ALL_ROWS = 3          # batch rows: history stops at each row's frame 0
+K6_SHORT_FRAMES = 3      # fewer frames than 8 taps
 # tests/test_pallas_fft.py:302's shapes, one 2^20 view with its grid, a ragged m
 K7_SHAPES = ((2, 256, 256), (2, 1024, 384), (2, 4096, 128), (1, 1024, 1024),
              (3, 512, 100))
 K7_GATE_DB = 110.0       # tests/test_pallas_fft.py:313, forward against numpy
 K7_RT_GATE_DB = 120.0    # tests/test_pallas_fft.py:316, roundtrip
 K7_PLAIN_GATE_DB = 125.0  # against its plain version in float64 on the card
+K7_ALL_N = tuple(1 << k for k in range(8, 13))    # every n K7 takes
+K7_ALL_M = (100, 64)     # a ragged last tile; a whole number of tiles of any width
+K7_ALL_BATCH = 3
 BIG_N = 1 << 20          # BASELINE.json's 1M-point FFT, bench.py:289-305
 BIG_MORE = (1 << 16, 1 << 21)
 BIG_PRINT = 1 << 24      # printed, not gated
@@ -131,7 +144,8 @@ LONG_TAPS = 4000         # its default overlap-save block is 32768 points
 LONG_FIR_LEN = 100000
 LONG_CHANNELS = 32768
 LONG_TPB, LONG_FRAMES = 2, 16
-K7_TILES = (4, 8, 16)    # columns per block tried at n = 1024
+K7_TILES = (8, 16)       # columns per block tried at n = 1024 ([64, 1024, 1024])
+K7_TILES_256 = (8, 16, 32)   # and at n = 256 ([64, 256, 4096])
 SPIN_CYCLES = 6_000_000  # a few ms of device spin ahead of a queued timing window
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, published
 F32_FLOPS_PER_S = 67e12      # H100 SXM, float32 outside the tensor cores
@@ -1018,6 +1032,34 @@ def main() -> int:
         say(f"[13] launches during {label}: {got}")
         gate(got == want, f"{label} launched {got}, expected {want}")
         path_launches.setdefault("pfb", got["pfb"])
+    # K6 against its step-by-step version in float64, every C it takes
+    k6_all = {}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for ch in K6_ALL_C:
+        ragged = pfb_cuda.pfb_block_shape(ch)[0] + 3     # a block and three frames
+        worst = np.inf
+        for tpb in K6_ALL_TPB:
+            for m in (ragged, K6_SHORT_FRAMES):
+                xr = torch.randn((K6_ALL_ROWS, m, ch), generator=gen, device=dev)
+                xi = torch.randn((K6_ALL_ROWS, m, ch), generator=gen, device=dev)
+                taps = torch.randn(tpb * ch, generator=gen, device=dev)
+                out = {}
+                got = counted(lambda: out.update(y=pfb_cuda.pfb_channelize_frames_cuda(
+                    ComplexArray(xr, xi), taps, ch)))
+                gate(got["pfb"] == 1 and sum(got.values()) == 1,
+                     f"K6 C={ch}: one call launched {got}")
+                y = out["y"]
+                ref = pfb_cuda.pfb_channelize_steps(
+                    xr.double(), xi.double(), taps.double().reshape(tpb, ch))
+                gate(bool(torch.isfinite(y.real).all()) and bool(torch.isfinite(y.imag).all()),
+                     f"K6 C={ch}, {tpb} taps, {m} frames: non-finite")
+                worst = min(worst, dev_snr_db(ref, (y.real, y.imag)))
+        k6_all[ch] = worst
+        gate(worst >= STEPS_GATE_DB, f"K6 C={ch}: vs steps {worst:.1f} dB")
+    say(f"[13] K6 [{K6_ALL_ROWS}, M, C] at every C, {K6_ALL_TPB} taps a branch, M = a block "
+        f"and three frames and M = {K6_SHORT_FRAMES}: worst SNR vs its step-by-step version "
+        f"in float64 (gate >= {STEPS_GATE_DB}): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in k6_all.items()) + "; one launch a call")
     # Full width: 1 s of 100 Msps IQ through 256 channels.
     gen = torch.Generator(device=dev).manual_seed(SEED)
     xwide = ComplexArray(torch.randn(C5_WIDE, generator=gen, device=dev),
@@ -1101,7 +1143,36 @@ def main() -> int:
         gate(worst["plain"] >= K7_PLAIN_GATE_DB,
              f"{label}: SNR vs plain {worst['plain']:.1f} dB")
         gate(s_rt >= K7_RT_GATE_DB, f"{label}: roundtrip {s_rt:.1f} dB")
-    del re, im, fold, fold64, got, plain, back, back_fold, kept, dre, dim_, out
+    k7_all = {}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for n in K7_ALL_N:
+        worst = np.inf
+        for m in K7_ALL_M:
+            re = torch.randn((K7_ALL_BATCH, n, m), generator=gen, device=dev)
+            im = torch.randn((K7_ALL_BATCH, n, m), generator=gen, device=dev)
+            fold = tuple(torch.randn((n, m), generator=gen, device=dev) for _ in range(2))
+            fold64 = tuple(a.double() for a in fold)
+            for inverse in (False, True):
+                for use in (None, fold):
+                    got = fft_cuda.fft_cols_cuda(re, im, inverse, use)
+                    ref = fft_cuda.fft_cols_steps(re.double(), im.double(), inverse,
+                                                  None if use is None else fold64)
+                    gate(bool(torch.isfinite(got[0]).all())
+                         and bool(torch.isfinite(got[1]).all()),
+                         f"K7 n={n}, m={m}: non-finite")
+                    worst = min(worst, dev_snr_db(ref, got))
+                    dre, dim_ = re.clone(), im.clone()
+                    out = fft_cuda.fft_cols_cuda(dre, dim_, inverse, use, donate=True)
+                    gate(out[0].data_ptr() == dre.data_ptr()
+                         and torch.equal(out[0], got[0]) and torch.equal(out[1], got[1]),
+                         f"K7 n={n}, m={m}: donated differs from not donated")
+        k7_all[n] = worst
+        gate(worst >= STEPS_GATE_DB, f"K7 n={n}: vs steps {worst:.1f} dB")
+    say(f"[14] K7 [{K7_ALL_BATCH}, n, m] at every n, m in {K7_ALL_M}, forward/inverse x "
+        f"fold/no fold: worst SNR vs its step-by-step version in float64 (gate >= "
+        f"{STEPS_GATE_DB}): " + ", ".join(f"{k} {v:.1f}" for k, v in k7_all.items())
+        + "; donated equals not donated")
+    del re, im, fold, fold64, got, plain, back, back_fold, kept, dre, dim_, out, ref
 
     # 15. the large FFT at full width
     def big_input(batch: int, n: int):
@@ -1343,6 +1414,15 @@ def main() -> int:
             say(f"[17] K7 [{batch}, {n2b}, {n1b}] by columns per block: "
                 + ", ".join(f"{tl}: {ms:.4f} ms" for tl, ms in tile_ms.items())
                 + f" (the wrapper picks {fft_cuda.cols_tile(n2b, n1b)})")
+            n_s, m_s = 256, BIG_N // 256
+            w_s = (work.real.view(batch, n_s, m_s), work.imag.view(batch, n_s, m_s))
+            grid_s = tuple(cuda(a) for a in _interstage_grids(n_s, m_s, -1.0))
+            tile_s = {tl: timed(lambda: fft_cuda._launch_fft_cols(
+                *w_s, False, grid_s, False, tile=tl), runs=7, inner=2) for tl in K7_TILES_256}
+            say(f"[17] K7 [{batch}, {n_s}, {m_s}] by columns per block: "
+                + ", ".join(f"{tl}: {ms:.4f} ms" for tl, ms in tile_s.items())
+                + f" (the wrapper picks {fft_cuda.cols_tile(n_s, m_s)})")
+            del w_s, grid_s
             # axis -2: rounds of K7, movedim, movedim, K7
             ab = {"axis -2 through dispatch (K7)": [], "axis -2 as movedim + K2": []}
             for i in range(AB_ROUNDS):

@@ -1,17 +1,17 @@
-// Register-resident FFT core of the row kernels K2 (fft_rows.cu), K1/K4
-// and K3 above 128 points (onesided.cuh), K3 up to 128 points
-// (spectrum_twosided.cu) and K5a/K5b (osconv.cu): self-sorting (Stockham)
-// mixed-radix passes, each pass's butterflies done in registers.
+// Register-resident FFT core of every transform kernel: K2 (fft_rows.cu),
+// K1/K4 and K3 above 128 points (onesided.cuh), K3 up to 128 points
+// (spectrum_twosided.cu), K5a/K5b (osconv.cu), K6 (pfb.cu) and, down the
+// columns of a tile, K7 (fft_cols.cu): self-sorting (Stockham) mixed-radix
+// passes, each pass's butterflies done in registers.
 //
-// What bounds a row transform on an H100 is device memory: a row is read
-// once and written once. The shared-memory radix-2 core (radix2.cuh, which
-// K6 and K7 still run) spends its time elsewhere: log2(n) passes
-// over the row in shared memory with a barrier after each, a bit-reversed
-// store on which all 32 lanes of a warp hit one bank, and two global
-// twiddle loads per butterfly. What is left to pay for here is the rate at
-// which an SM takes instructions, above all on the integer pipe (half the
-// rate of the float pipe), so the design keeps both the shared-memory
-// traffic and the address arithmetic down:
+// What bounds a transform on an H100 is device memory: a point is read
+// once and written once. A radix-2 transform in shared memory spends its
+// time elsewhere: log2(n) passes over the row with a barrier after each, a
+// bit-reversed store on which all 32 lanes of a warp hit one bank, and two
+// global twiddle loads per butterfly. What is left to pay for here is the
+// rate at which an SM takes instructions, above all on the integer pipe
+// (half the rate of the float pipe), so the design keeps both the
+// shared-memory traffic and the address arithmetic down:
 //
 // * A thread holds R complex points in registers (R = 16, which takes 64
 //   registers, so that the 1024 threads of a 16384-point row fit an SM; 4
@@ -48,6 +48,14 @@
 //   [(t-1)*Ns + k], so that a warp reads consecutive pairs. The host
 //   gathers it from the one n-entry float64-built table (rounded once);
 //   W_16^e are float literals rounded from double. No fast-math.
+// * A transform may also run down the columns of a tile (K7): point a of a
+//   column is then row a of a [row][column] tile, 2^LOG2W words wide, and
+//   the lanes of a warp run across the columns first. The exchange keeps
+//   that layout, with one spare row after every 2^PADSHIFT rows, chosen so
+//   that the few rows a warp touches at once fall in different banks; the
+//   twiddles depend on the row only, so the lanes of a row share them. The
+//   row kernels are the case of one word a point and a spare word after
+//   every 32 (LOG2W = 0, PADSHIFT = 5).
 //
 // The plan (which radices) is the host's (ops/fft_cuda.py: radix_plan);
 // FFT_PLANS below lists the same plans for the template instances, and a
@@ -71,7 +79,16 @@
 // fewer).
 constexpr int kMinBlockThreads = 128;
 
-__host__ __device__ constexpr int exchange_pad(int a) { return a + (a >> 5); }
+// Where point a of a transform lies in its shared-memory exchange, in
+// words from its point 0: points 2^LOG2W words apart, one spare point after
+// every 2^PADSHIFT.
+template <int LOG2W, int PADSHIFT>
+__host__ __device__ constexpr int exchange_at(int a) {
+  return (a + (a >> PADSHIFT)) << LOG2W;
+}
+
+// The row kernels' exchange: one word a point, a spare word after every 32.
+__host__ __device__ constexpr int exchange_pad(int a) { return exchange_at<0, 5>(a); }
 
 __host__ __device__ constexpr int log2_exact(int n) {
   int l = 0;
@@ -178,8 +195,8 @@ static __device__ __forceinline__ void butterflies(float (&xr)[R], float (&xi)[R
 
 // One pass of radix 2^LOG of a row of 2^LOG2T threads, 2^LOG2NS the product
 // of the radices before it: twiddles (but for the first pass), butterflies
-// and, but for the last pass, the exchange.
-template <int R, int LOG, int LOG2T, int LOG2NS, bool LAST>
+// and, but for the last pass, the exchange (laid out by exchange_at).
+template <int R, int LOG, int LOG2T, int LOG2NS, bool LAST, int LOG2W, int PADSHIFT>
 static __device__ __forceinline__ void fft_pass(float (&xr)[R], float (&xi)[R],
                                                 float* sre, float* sim,
                                                 const float2* __restrict__ tw,
@@ -188,6 +205,7 @@ static __device__ __forceinline__ void fft_pass(float (&xr)[R], float (&xi)[R],
   constexpr int M = R / RADIX;
   constexpr int NS = 1 << LOG2NS;
   constexpr bool FIRST = LOG2NS == 0;
+  const auto at_of = [](int a) { return exchange_at<LOG2W, PADSHIFT>(a); };
   if constexpr (!FIRST) {
 #pragma unroll
     for (int u = 0; u < M; ++u) {
@@ -208,19 +226,19 @@ static __device__ __forceinline__ void fft_pass(float (&xr)[R], float (&xi)[R],
 #pragma unroll
     for (int u = 0; u < M; ++u) {
       const int j = tid + (u << LOG2T);
-      const int at = exchange_pad(((j >> LOG2NS) << (LOG2NS + LOG)) + (j & (NS - 1)));
+      const int at = at_of(((j >> LOG2NS) << (LOG2NS + LOG)) + (j & (NS - 1)));
 #pragma unroll
       for (int t = 0; t < RADIX; ++t) {
-        sre[at + exchange_pad(t << LOG2NS)] = xr[u + t * M];
-        sim[at + exchange_pad(t << LOG2NS)] = xi[u + t * M];
+        sre[at + at_of(t << LOG2NS)] = xr[u + t * M];
+        sim[at + at_of(t << LOG2NS)] = xi[u + t * M];
       }
     }
     __syncthreads();
-    const int at = exchange_pad(tid);
+    const int at = at_of(tid);
 #pragma unroll
     for (int q = 0; q < R; ++q) {
-      xr[q] = sre[at + exchange_pad(q << LOG2T)];
-      xi[q] = sim[at + exchange_pad(q << LOG2T)];
+      xr[q] = sre[at + at_of(q << LOG2T)];
+      xi[q] = sim[at + at_of(q << LOG2T)];
     }
   }
 }
@@ -228,8 +246,10 @@ static __device__ __forceinline__ void fft_pass(float (&xr)[R], float (&xi)[R],
 // The whole transform of one row held by 2^LOG2T threads, R points each, by
 // the passes of PLAN. Every thread of the block must call it (it holds
 // block barriers); sre/sim are the row's own planes in shared memory
-// (unused by a one-pass plan); tw is the plan's pass table.
-template <int R, int LOG2T, int PLAN, int LOG2NS = 0>
+// (unused by a one-pass plan); tw is the plan's pass table. For a column of
+// a tile, tid is the thread's index within its column and sre/sim point at
+// the column's word of the tile's row 0.
+template <int R, int LOG2T, int PLAN, int LOG2W = 0, int PADSHIFT = 5, int LOG2NS = 0>
 static __device__ __forceinline__ void fft_regs(float (&xr)[R], float (&xi)[R],
                                                 float* sre, float* sim,
                                                 const float2* __restrict__ tw,
@@ -237,8 +257,9 @@ static __device__ __forceinline__ void fft_regs(float (&xr)[R], float (&xi)[R],
   if constexpr (PLAN != 0) {
     constexpr int LOG = PLAN & 15;
     static_assert(LOG >= 1 && LOG <= 4 && (1 << LOG) <= R, "radix 2..16, at most R");
-    fft_pass<R, LOG, LOG2T, LOG2NS, (PLAN >> 4) == 0>(xr, xi, sre, sim, tw, tid);
-    fft_regs<R, LOG2T, (PLAN >> 4), LOG2NS + LOG>(
+    fft_pass<R, LOG, LOG2T, LOG2NS, (PLAN >> 4) == 0, LOG2W, PADSHIFT>(xr, xi, sre, sim,
+                                                                      tw, tid);
+    fft_regs<R, LOG2T, (PLAN >> 4), LOG2W, PADSHIFT, LOG2NS + LOG>(
         xr, xi, sre, sim, tw + (LOG2NS == 0 ? 0 : ((1 << LOG) - 1) << LOG2NS), tid);
   }
 }

@@ -44,11 +44,12 @@ _SIGNATURES = {
     "osconv_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     # in, out, hre, him, pass table, plan, rows, length, n, overlap, stream
     "osconv_signal_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # xre, xim, ore, oim, hp, twc, tws, frames, m_frames, c, t_taps, stream
-    "pfb_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # in_re, in_im, out_re, out_im, gc, gs (both nullable), twc, tws, batch,
-    # n, m, tl, inverse, stream
-    "fft_cols_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # xre, xim, ore, oim, hp, pass table, plan, frames, m_frames, c, t_taps,
+    # stream
+    "pfb_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # in_re, in_im, out_re, out_im, gc, gs (both nullable), pass table, plan,
+    # batch, n, m, tl, inverse, stream
+    "fft_cols_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -28,6 +28,7 @@ for those sizes.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -53,6 +54,15 @@ def pfb_taps(channels: int, taps_per_branch: int = 8,
     (scaled), unity DC gain."""
     return design_lowpass(channels * taps_per_branch,
                           cutoff_scale / channels)
+
+
+@functools.lru_cache(maxsize=8)
+def _default_taps(channels: int, taps_per_branch: int,
+                  device: torch.device) -> torch.Tensor:
+    """:func:`pfb_taps` on ``device`` (float64), kept for the last few
+    (C, T, device): a call with no taps of its own then designs and uploads
+    nothing, and the host does not wait for the stream. Read-only."""
+    return torch.from_numpy(pfb_taps(channels, taps_per_branch)).to(device)
 
 
 def _use_kernel(device_type: str, dtype: torch.dtype, channels: int) -> bool:
@@ -85,7 +95,7 @@ def pfb_channelize(x, channels: int, taps=None,
     package; both run the float32 kernels here)."""
     xc = as_complex_array(x)
     if taps is None:
-        taps = pfb_taps(channels, taps_per_branch)
+        taps = _default_taps(channels, taps_per_branch, xc.real.device)
     if xc.real.shape[-1] % channels != 0:
         raise ValueError(
             f"input length {xc.real.shape[-1]} not a multiple of "
@@ -113,7 +123,7 @@ def pfb_channelize_frames(x, channels: int, taps=None,
             f"frames input must be [..., M, {channels}], "
             f"got {tuple(xc.real.shape)}")
     if taps is None:
-        taps = pfb_taps(channels, taps_per_branch)
+        taps = _default_taps(channels, taps_per_branch, xc.real.device)
     return _channelize_frames(xc, taps, channels, precision)
 
 
@@ -133,9 +143,9 @@ def pfb_stream_init(channels: int, taps_per_branch: int = 8,
     return PfbState(tail_re=z, tail_im=z.clone())
 
 
-def _taps_count(taps, channels: int, taps_per_branch: int):
+def _taps_count(taps, channels: int, taps_per_branch: int, device):
     if taps is None:
-        taps = pfb_taps(channels, taps_per_branch)
+        taps = _default_taps(channels, taps_per_branch, device)
     return taps, -(-len(taps) // channels)
 
 
@@ -145,7 +155,7 @@ def pfb_channelize_step(state: PfbState, chunk, channels: int, taps=None,
     """Chunked channelizer matching the batch result (chunk length must
     be a multiple of C)."""
     xc = as_complex_array(chunk)
-    taps, t_taps = _taps_count(taps, channels, taps_per_branch)
+    taps, t_taps = _taps_count(taps, channels, taps_per_branch, xc.real.device)
     hist = (t_taps - 1) * channels
     buf = ComplexArray(torch.cat([state.tail_re, xc.real], dim=-1),
                        torch.cat([state.tail_im, xc.imag], dim=-1))
@@ -186,7 +196,7 @@ def pfb_channelize_frames_step(state: PfbFramesState, chunk_frames,
     if xc.real.ndim < 2 or xc.real.shape[-1] != channels:
         raise ValueError(
             f"chunk must be [..., Mc, {channels}], got {tuple(xc.real.shape)}")
-    taps, t_taps = _taps_count(taps, channels, taps_per_branch)
+    taps, t_taps = _taps_count(taps, channels, taps_per_branch, xc.real.device)
     hist = t_taps - 1                      # history in FRAMES
     buf = ComplexArray(torch.cat([state.tail_re, xc.real], dim=-2),
                        torch.cat([state.tail_im, xc.imag], dim=-2))

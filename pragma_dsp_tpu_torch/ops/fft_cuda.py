@@ -25,17 +25,18 @@ Counterpart of ``pragma_dsp_tpu/ops/fft_pallas.py``:
 * K7 ``fft_cols`` (``csrc/fft_cols.cu``) replaces ``_fftcols_kernel``: a
   batched complex FFT over axis -2 of [B, n, m], natural row order in and
   out, with an optional (n, m) twiddle grid folded into the output
-  (forward) or the input (inverse). It is stage 1 of the large FFT
-  (``ops/fft_big.py``) and the axis -2 route of ``ops.dispatch``.
+  (forward) or the input (inverse): the register core run down the columns
+  of a tile, the lanes of a warp across its columns. It is stage 1 of the
+  large FFT (``ops/fft_big.py``) and the axis -2 route of ``ops.dispatch``.
 
 K1, K3 and K4 hold a whole frame in one block, which ends at n = 16384. A longer CUDA frame takes the route the JAX package takes in
 effect: window -> ``ops.dispatch.fft`` (the large FFT, K7 then K2) -> |X|,
 phase and scaling in PyTorch, with DC and Nyquist made real as K1 makes
 them.
 
-``fft_rows_steps``, ``spectrum_amp_phase_steps`` and
-``spectrum_twosided_steps`` repeat the register core's arithmetic step by
-step in PyTorch (thread, register and
+``fft_rows_steps``, ``spectrum_amp_phase_steps``,
+``spectrum_twosided_steps`` and ``fft_cols_steps`` repeat the register
+core's arithmetic step by step in PyTorch (thread, register and
 shared-memory address included): the tests hold them against the JAX
 package here and the kernels against them on the card.
 
@@ -92,14 +93,21 @@ __all__ = [
     "framed_spectrum_amp_phase_steps",
     "fft_cols_cuda",
     "fft_cols_plain",
+    "fft_cols_steps",
 ]
 
 # A row of complex f32 must fit one block's shared memory (8*n bytes).
 MAX_ROWS_N = 16384
 # The column kernel's largest transform, the JAX package's bound
 # (fft_pallas.py:791), kept as the contract: ops.fft_big splits by it. Four
-# columns of 4096 complex f32 points fill 128 KiB of shared memory.
+# columns of 4096 points are the 1024 threads of one block.
 MAX_COLS_N = 4096
+# The tile widths K7 is instantiated for (narrower only where the threads
+# of a block hold no wider one: 4 columns at n = 4096), and that limit.
+COLS_TILES = (8, 16, 32)
+COLS_MAX_THREADS = 1024
+# K7's exchange tile has one spare row after every 2**COLS_PAD_SHIFT rows.
+COLS_PAD_SHIFT = 4
 # K3 takes any n up to this through a direct DFT, as the JAX package's
 # dense-DFT route does (fft_pallas.py:1638-1641); above it, n must be a
 # power of two, and one-sided spectra go to K1.
@@ -150,22 +158,19 @@ def _dft64(n: int) -> Tuple[np.ndarray, np.ndarray]:
 
 def dft_table(n: int) -> Tuple[np.ndarray, np.ndarray]:
     """The n-entry table every kernel's twiddles come from, rounded once to
-    f32. K3's direct DFT indexes all of it by (k*j) mod n; the radix-2 core
-    (K6, K7) reads the first n/2 entries, bit-equal to the Stockham
-    twiddles of size n; K1, K4 and K3 read W_n^k, k < n/2, in the untangle;
-    :func:`pass_twiddles` gathers the register core's passes from it."""
+    f32. K3's direct DFT indexes all of it by (k*j) mod n; K1, K4 and K3
+    read W_n^k, k < n/2, in the untangle; :func:`pass_twiddles` gathers the
+    register core's passes from it."""
     c, s = _dft64(n)
     return c.astype(np.float32), s.astype(np.float32)
 
 
 @functools.lru_cache(maxsize=32)
-def _device_tables(n: int, window: Optional[str], device: torch.device):
-    """(cos, sin[, window]) on ``device``: :func:`dft_table` and the f32
+def _device_tables(n: int, window: str, device: torch.device):
+    """(cos, sin, window) on ``device``: :func:`dft_table` and the f32
     window row."""
-    tabs = [torch.from_numpy(t) for t in dft_table(n)]
-    if window is not None:
-        tabs.append(torch.from_numpy(onesided_window(n, window)[0]))
-    return tuple(t.to(device) for t in tabs)
+    tabs = dft_table(n) + (onesided_window(n, window)[0],)
+    return tuple(torch.from_numpy(t).to(device) for t in tabs)
 
 
 @functools.lru_cache(maxsize=32)
@@ -251,7 +256,18 @@ def exchange_pad(a):
     spare word after every 32. A pass's loads (consecutive words) and the
     first pass's stores (stride 16) touch 32 different banks; the second
     pass's stores (two runs of 16 words) are a 2-way conflict."""
-    return a + (a >> 5)
+    return exchange_at(a)
+
+
+def exchange_at(a, log2w: int = 0, padshift: int = 5):
+    """``exchange_at`` of csrc/fft_regs.cuh: where point ``a`` of a
+    transform lies in its exchange, in words from its point 0, when points
+    are ``2**log2w`` words apart with one spare point after every
+    ``2**padshift``. The row kernels are (0, 5), :func:`exchange_pad`; K7's
+    [row][column] tile of ``2**log2w`` columns is (log2w, COLS_PAD_SHIFT):
+    the 32 / 2**log2w rows a warp touches at once, consecutive on a reload
+    and 16 apart on the first pass's store, lie in different banks."""
+    return (a + (a >> padshift)) << log2w
 
 
 def _w16(e: int, dtype: torch.dtype) -> Tuple[float, float]:
@@ -296,15 +312,31 @@ def _butterflies_steps(xr: list, xi: list, radix: int) -> None:
             xr[u + t * m], xi[u + t * m] = nat[t]
 
 
-def _fft_regs_steps(xr: list, xi: list, n: int, tw: torch.Tensor) -> None:
+def _fft_regs_steps(xr: list, xi: list, n: int, tw: torch.Tensor,
+                    log2w: Optional[int] = None) -> None:
     """The register core on R = len(xr) registers of [B, T] lanes
     (T = n/R threads a row; register q of thread tid holds point
     tid + T*q, before and after): the passes of :func:`radix_plan`, each a
     twiddle multiply, the in-register butterflies and, but for the last,
-    one exchange through a padded row of shared memory."""
+    one exchange through a padded row of shared memory.
+
+    ``log2w`` set: the core down the columns of a tile, as K7 runs it.
+    Registers are [..., T, W] (W = 2**log2w columns, the lanes of a warp
+    across them first), the exchange is the [row][column] tile of
+    :func:`exchange_at` (log2w, COLS_PAD_SHIFT), and a row's lanes share
+    its twiddle."""
     regs = len(xr)
     lanes = n // regs
-    tid = torch.arange(lanes, device=xr[0].device)
+    dev = xr[0].device
+    tid = torch.arange(lanes, device=dev)
+    if log2w is None:
+        lead, words = xr[0].shape[:-1], exchange_pad(n)
+        at, wide = exchange_pad, (lambda v: v)
+    else:
+        col = torch.arange(1 << log2w, device=dev)
+        lead, words = xr[0].shape[:-2], exchange_at(n, log2w, COLS_PAD_SHIFT)
+        at = lambda a: exchange_at(a, log2w, COLS_PAD_SHIFT)[:, None] + col  # noqa: E731
+        wide = lambda v: v[:, None]  # noqa: E731
     plan = radix_plan(n)
     ns, off = 1, 0
     for p, r in enumerate(plan):
@@ -313,23 +345,22 @@ def _fft_regs_steps(xr: list, xi: list, n: int, tw: torch.Tensor) -> None:
             for u in range(m):
                 k = (tid + u * lanes) & (ns - 1)
                 for t in range(1, r):
-                    c, s = tw[off + (t - 1) * ns + k].unbind(-1)
+                    c, s = (wide(w) for w in tw[off + (t - 1) * ns + k].unbind(-1))
                     q = u + t * m
                     xr[q], xi[q] = xr[q] * c - xi[q] * s, xr[q] * s + xi[q] * c
             off += (r - 1) * ns
         _butterflies_steps(xr, xi, r)
         if p + 1 < len(plan):
-            sre = torch.empty(xr[0].shape[:-1] + (exchange_pad(n),), dtype=xr[0].dtype,
-                              device=xr[0].device)
+            sre = torch.empty(lead + (words,), dtype=xr[0].dtype, device=dev)
             sim = torch.empty_like(sre)
             for u in range(m):
                 j = tid + u * lanes
                 base = (j // ns) * ns * r + (j & (ns - 1))
                 for t in range(r):
-                    a = exchange_pad(base + t * ns)
+                    a = at(base + t * ns)
                     sre[..., a], sim[..., a] = xr[u + t * m], xi[u + t * m]
             for q in range(regs):
-                a = exchange_pad(tid + lanes * q)
+                a = at(tid + lanes * q)
                 xr[q], xi[q] = sre[..., a], sim[..., a]
         ns *= r
 
@@ -848,13 +879,86 @@ def fft_cols_plain(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
 
 
 def cols_tile(n: int, m: int) -> int:
-    """Columns per block of K7: a power of two up to 32 whose (n, tile)
-    complex f32 tile takes 64 KiB of shared memory (128 KiB at n = 4096,
-    where the tile stays at four columns: 16-byte runs), and no wider
-    than m rounded up to a power of two. Two such blocks share an SM; on an
-    H100 at [64, 1024, 1024] eight columns read 1.08 ms against 1.52 ms
-    for four (shorter runs) and 1.41 ms for sixteen (one block an SM)."""
-    return max(1, min(32, max(4, 8192 // n), next_power_of_two(m)))
+    """Columns per block of K7: as many as the n/16 * tile threads of a
+    block allow, up to a warp: 32 to n = 512, 16 at 1024, 8 at 2048, 4 at
+    4096; down to 8 where m rounded up to a power of two is narrower (the
+    one tile's missing columns are masked). The exchange tile takes
+    8.5 * n * tile bytes of shared memory. Width is what the time follows
+    (a warp's load touches 32/tile lines): on an H100 with the fold,
+    [64, 1024, 1024] read 0.54 ms at 16 columns and 0.68 at 8,
+    [64, 256, 4096] 0.46 at 32, 0.49 at 16 and 0.67 at 8, and
+    [16, 4096, 1024], the same bytes with 4 columns, 1.62 ms."""
+    widest = min(COLS_TILES[-1], COLS_MAX_THREADS * MAX_RADIX // n)
+    return min(widest, max(COLS_TILES[0], next_power_of_two(m)))
+
+
+def _check_cols_tile(n: int, tile: int) -> int:
+    threads = n // MAX_RADIX * tile
+    if not (is_power_of_two(tile) and tile <= COLS_TILES[-1]
+            and threads <= COLS_MAX_THREADS
+            and (tile >= COLS_TILES[0] or threads == COLS_MAX_THREADS)):
+        raise ValueError(
+            f"the column FFT kernel takes a tile of {COLS_TILES} columns with "
+            f"n/16 * tile <= {COLS_MAX_THREADS} threads, or the widest that "
+            f"fits, got {tile} at n = {n}")
+    return tile
+
+
+def fft_cols_steps(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
+                   fold=None, tile: Optional[int] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K7's arithmetic step by step in PyTorch, for the tests: what
+    ``csrc/fft_cols.cu`` does to [..., n, m] planes. A block owns ``tile``
+    adjacent columns (default :func:`cols_tile`); thread (column, r) holds
+    rows r + (n/16)*q of its column in register q; a last tile that m does
+    not fill loads zeros for its missing columns and stores nothing there;
+    the passes are the register core's down the column with the padded
+    [row][column] exchange. The grid multiplies the registers after the
+    load (inverse) or before the store (forward). The inverse is the
+    forward transform of the swapped planes, on which the grid enters
+    conjugated, swapped back and scaled by 1/n."""
+    n, m = re.shape[-2:]
+    tl = _check_cols_tile(n, cols_tile(n, m) if tile is None else tile)
+    shape = re.shape
+    tiles = -(-m // tl)
+
+    def tiled(plane):
+        """[..., n, m] -> [B, tiles, n, tl], zeros in the masked columns."""
+        plane = torch.nn.functional.pad(plane.reshape(-1, n, m), (0, tiles * tl - m))
+        return plane.reshape(-1, n, tiles, tl).transpose(1, 2)
+
+    if inverse:
+        re, im = im, re
+    pr, pi = tiled(re), tiled(im)
+    lanes = n // MAX_RADIX
+    r = torch.arange(lanes, device=re.device)
+    xr = [pr[:, :, r + lanes * q, :] for q in range(MAX_RADIX)]
+    xi = [pi[:, :, r + lanes * q, :] for q in range(MAX_RADIX)]
+    if fold is not None:
+        gc, gs = (tiled(torch.as_tensor(g).to(device=re.device, dtype=re.dtype))[0]
+                  for g in fold)
+        gsign = -1.0 if inverse else 1.0
+
+        def grid_multiply():
+            for q in range(MAX_RADIX):
+                c, s = gc[:, r + lanes * q, :], gsign * gs[:, r + lanes * q, :]
+                xr[q], xi[q] = xr[q] * c - xi[q] * s, xr[q] * s + xi[q] * c
+
+    if fold is not None and inverse:
+        grid_multiply()
+    tw = torch.from_numpy(pass_twiddles(
+        n, np.float32 if re.dtype == torch.float32 else np.float64)).to(re.device)
+    _fft_regs_steps(xr, xi, n, tw, log2w=tl.bit_length() - 1)
+    if fold is not None and not inverse:
+        grid_multiply()
+    scale = 1.0 / n if inverse else 1.0
+    ore, oim = torch.empty_like(pr), torch.empty_like(pi)
+    for q in range(MAX_RADIX):
+        ore[:, :, r + lanes * q, :] = xr[q] * scale
+        oim[:, :, r + lanes * q, :] = xi[q] * scale
+    ore, oim = (p.transpose(1, 2).reshape(-1, n, tiles * tl)[..., :m].reshape(shape)
+                for p in (ore, oim))
+    return (oim, ore) if inverse else (ore, oim)
 
 
 def _launch_fft_cols(re: torch.Tensor, im: torch.Tensor, inverse: bool, fold,
@@ -869,6 +973,7 @@ def _launch_fft_cols(re: torch.Tensor, im: torch.Tensor, inverse: bool, fold,
     re, im = re.contiguous(), im.contiguous()
     ore, oim = (re, im) if donate else (torch.empty_like(re), torch.empty_like(im))
     batch, n, m = re.shape
+    tile = _check_cols_tile(n, cols_tile(n, m) if tile is None else tile)
     if batch * m == 0:
         return ore, oim
     gc = gs = None
@@ -876,15 +981,14 @@ def _launch_fft_cols(re: torch.Tensor, im: torch.Tensor, inverse: bool, fold,
         gc, gs = (torch.as_tensor(g).to(device=re.device, dtype=torch.float32)
                   .contiguous() for g in fold)
     lib = _build.library()
-    twc, tws = _device_tables(n, None, re.device)
+    tw = _device_pass_twiddles(n, re.device)
     with torch.cuda.device(re.device):
         stream = torch.cuda.current_stream(re.device).cuda_stream
         code = lib.fft_cols_f32(
             re.data_ptr(), im.data_ptr(), ore.data_ptr(), oim.data_ptr(),
             None if gc is None else gc.data_ptr(),
-            None if gs is None else gs.data_ptr(), twc.data_ptr(),
-            tws.data_ptr(), batch, n, m,
-            cols_tile(n, m) if tile is None else tile, int(inverse), stream)
+            None if gs is None else gs.data_ptr(), tw.data_ptr(),
+            _plan_code_of(n), batch, n, m, tile, int(inverse), stream)
     _build.check(lib, code, "fft_cols")
     LAUNCHES["fft_cols"] += 1
     return ore, oim
@@ -904,8 +1008,8 @@ def fft_cols_cuda(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
 
     donate=True lets the kernel write the result into ``re``/``im`` (which
     must be contiguous and dead after the call): each block reads its whole
-    tile of columns into shared memory before it writes, and tiles are
-    disjoint, so in place is safe. A CPU tensor runs :func:`fft_cols_plain`;
+    tile of columns into registers before it writes (a barrier lies
+    between), and tiles are disjoint, so in place is safe. A CPU tensor runs :func:`fft_cols_plain`;
     donate has no effect there.
     """
     if re.ndim < 2 or re.shape != im.shape:

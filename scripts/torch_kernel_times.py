@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time the PyTorch port's row kernels (K2 row FFT, K1 one-sided spectrum,
-K4 framed spectrogram, K3 two-sided spectrum, K5a/K5b circular convolution)
-and the FIR path of the checkout at --root on one CUDA card, so that two
-checkouts can be compared on the same card, one after the other:
+"""Time the PyTorch port's kernels (K2 row FFT, K1 one-sided spectrum, K4
+framed spectrogram, K3 two-sided spectrum, K5a/K5b circular convolution,
+K6 polyphase filterbank, K7 column FFT), the FIR path and the large FFT of
+the checkout at --root on one CUDA card, so that two checkouts can be
+compared on the same card, one after the other:
 
     python3 scripts/torch_kernel_times.py --root /path/to/parent
     python3 scripts/torch_kernel_times.py --root .
@@ -13,9 +14,10 @@ Each call is timed twice with CUDA events, as the median over runs of
 `inner` back-to-back launches: as launched ("ms"), where short kernels wait
 for the host's launch work, and queued behind a device spin ("queued_ms"),
 where the host has enqueued every launch before the first one runs, so
-the device's own time shows. The row FFT is timed beside torch.fft.fft on
-the same points as one complex64 tensor (the library yardstick; the port
-never calls it). Only the public wrappers are called, so a checkout whose C
+the device's own time shows. The row and column FFTs are timed beside
+torch.fft.fft on the same points as one complex64 tensor (the library
+yardstick, with the grid multiply after it where K7 folds the grid in; the
+port never calls it). Only the public wrappers are called, so a checkout whose C
 entries differ is timed the same way. K1's and K4's rows carry a digest of
 their output on the seeded input: two checkouts whose digests agree give
 bit-equal results there. Prints the card (nvidia-smi name and power limit)
@@ -40,6 +42,12 @@ K3_SHAPES = ((59520, 4096), (16384, 128))    # config 2's frames; the small-n ga
 K5_SHAPES = ((68480, 1024), (1024, 16384), (1, 1024))   # the FIR path's blocks; K5a
 FIR_SHAPE = (128, 480000)                # the FIR path's signal
 FIR_TAPS, FIR_CUTOFF = 127, 0.2          # a 127-tap windowed sinc
+PFB_SAMPLES, PFB_TPB = 10 ** 8, 8        # config 5: 1 s of 100 Msps IQ, 8 taps a branch
+PFB_LONG_TPB = 16                        # more than K6 sums from registers
+PFB_CHANNELS = (256, 128, 1024, 16384)   # config 5's C first
+K7_SHAPES = ((64, 1024, 1024, True), (64, 1024, 1024, False), (64, 256, 4096, True),
+             (16, 4096, 1024, True))     # [batch, n, m], with the fold
+BIG_SHAPE = (64, 1 << 20)                # the large FFT's batch
 SPIN_CYCLES = 6_000_000                  # a few ms of device spin
 
 
@@ -48,6 +56,7 @@ def main() -> int:
     parser.add_argument("--root", default=".", help="checkout that holds pragma_dsp_tpu_torch/")
     parser.add_argument("--runs", type=int, default=11)
     parser.add_argument("--inner", type=int, default=10)
+    parser.add_argument("--only", default="", help="time only the rows whose name contains this")
     args = parser.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
@@ -55,7 +64,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_kernel_times: needs one CUDA card", file=sys.stderr)
         return 1
-    from pragma_dsp_tpu_torch.ops import conv_cuda, dispatch, fft_cuda, fir_filter
+    from pragma_dsp_tpu_torch.core import ComplexArray
+    from pragma_dsp_tpu_torch.ops import (conv_cuda, dispatch, fft_cuda, fir_filter,
+                                          pfb_cuda, pfb_taps)
+    from pragma_dsp_tpu_torch.ops.fft_big import _interstage_grids, fft_big_permuted
     from pragma_dsp_tpu_torch.ops.polyphase import design_lowpass
 
     dev = torch.device("cuda", 0)
@@ -86,6 +98,8 @@ def main() -> int:
         return hashlib.sha256(first.cpu().numpy().tobytes()).hexdigest()[:16]
 
     def report(kernel: str, shape, fn, library=None, with_digest=False) -> None:
+        if args.only not in kernel:
+            return
         row = {"kernel": kernel, "shape": list(shape), "ms": timed(fn, False),
                "queued_ms": timed(fn, True)}
         if with_digest:
@@ -129,6 +143,39 @@ def main() -> int:
     del x
     sig = torch.randn(FIR_SHAPE, generator=gen, device=dev)
     report(f"fir_filter {FIR_TAPS} taps", FIR_SHAPE, lambda: fir_filter(sig, taps))
+    del sig
+    for c in PFB_CHANNELS:
+        frames = PFB_SAMPLES // c
+        x = ComplexArray(torch.randn((frames, c), generator=gen, device=dev),
+                         torch.randn((frames, c), generator=gen, device=dev))
+        ptaps = torch.from_numpy(pfb_taps(c, PFB_TPB).astype(np.float32)).to(dev)
+        report(f"pfb {PFB_TPB} taps a branch", (frames, c),
+               lambda: pfb_cuda.pfb_channelize_frames_cuda(x, ptaps, c))
+        if c == PFB_CHANNELS[0]:    # a filter too long to sum from registers
+            ltaps = torch.from_numpy(pfb_taps(c, PFB_LONG_TPB).astype(np.float32)).to(dev)
+            report(f"pfb {PFB_LONG_TPB} taps a branch", (frames, c),
+                   lambda: pfb_cuda.pfb_channelize_frames_cuda(x, ltaps, c))
+    del x
+    for batch, n, m, with_fold in K7_SHAPES:
+        re = torch.randn((batch, n, m), generator=gen, device=dev)
+        im = torch.randn((batch, n, m), generator=gen, device=dev)
+        fold = (tuple(torch.from_numpy(g).to(dev) for g in _interstage_grids(n, m, -1.0))
+                if with_fold else None)
+        cplx = torch.complex(re, im)
+        grid = torch.complex(*fold) if with_fold else None
+        report("fft_cols with the fold" if with_fold else "fft_cols", (batch, n, m),
+               lambda: fft_cuda.fft_cols_cuda(re, im, fold=fold),
+               library=(lambda: torch.fft.fft(cplx, dim=-2) * grid) if with_fold
+               else (lambda: torch.fft.fft(cplx, dim=-2)))
+        if with_fold and (batch, n, m) == K7_SHAPES[0][:3]:
+            report("fft_cols inverse with the fold", (batch, n, m),
+                   lambda: fft_cuda.fft_cols_cuda(re, im, inverse=True, fold=fold))
+        del cplx, grid
+    big = ComplexArray(torch.randn(BIG_SHAPE, generator=gen, device=dev),
+                       torch.randn(BIG_SHAPE, generator=gen, device=dev))
+    cplx = torch.complex(big.real, big.imag)
+    report("fft_big_permuted", BIG_SHAPE, lambda: fft_big_permuted(big),
+           library=lambda: torch.fft.fft(cplx, dim=-1))
     return 0
 
 

@@ -1,5 +1,5 @@
 """K1-K7 on a CUDA card, against float64 numpy and their plain versions
-(K1-K5 also against their step-by-step versions),
+and their step-by-step versions,
 under the bench.py gates (>=105 dB; >=120 dB at n <= 128), and K4
 bit-equal to K1 on the same frames; K5a/K5b (circular convolution) at
 >=125 dB and K6 (the channelizer) at >=105 dB, with their routes' launch
@@ -28,7 +28,8 @@ from pragma_dsp_tpu_torch.ops.conv_cuda import (circular_convolve_plain,
 from pragma_dsp_tpu_torch.ops.fft_big import (big_permuted_to_natural, big_split,
                                               fft_big_permuted,
                                               ifft_big_from_permuted)
-from pragma_dsp_tpu_torch.ops.pfb_cuda import pfb_channelize_plain, pfb_tap_table
+from pragma_dsp_tpu_torch.ops.pfb_cuda import (pfb_channelize_plain,
+                                               pfb_channelize_steps, pfb_tap_table)
 from pragma_dsp_tpu_torch.stream import frame_signal, spectrogram_amplitude
 from pragma_dsp_tpu_torch.xform import window_values
 
@@ -269,21 +270,26 @@ def test_fir_routes_on_cuda(dev):
     assert _snr(long_ref, got) >= 110.0
 
 
-@pytest.mark.parametrize("c,batch", [(128, 1), (256, 3), (4096, 2)])
-def test_k6_on_cuda(dev, c, batch):
+@pytest.mark.parametrize("c,batch,tpb", [(128, 1, 8), (256, 3, 8), (4096, 2, 8),
+                                         (512, 2, 3), (2048, 3, 1), (16384, 1, 8),
+                                         (1024, 2, 11)])
+def test_k6_on_cuda(dev, c, batch, tpb):
+    """24 frames a row: a ragged last block below C = 512, several blocks
+    above; 11 taps a branch are summed straight from device memory."""
     rng = np.random.default_rng(c + batch)
     m = 24
     z = rng.standard_normal((batch, m * c)) + 1j * rng.standard_normal((batch, m * c))
-    taps = pfb_taps(c, 8)
+    taps = pfb_taps(c, tpb)
     xr = torch.from_numpy(z.real.astype(np.float32)).to(dev)
     xi = torch.from_numpy(z.imag.astype(np.float32)).to(dev)
     before = fft_cuda.LAUNCHES["pfb"]
     y = pfb_channelize(ComplexArray(xr, xi), c, taps)
     assert fft_cuda.LAUNCHES["pfb"] == before + 1
-    hp = np.zeros(8 * c)
+    hp = np.zeros(tpb * c)
     hp[:taps.size] = taps
-    zp = np.concatenate([np.zeros((batch, 7 * c)), z], axis=-1).reshape(batch, m + 7, c)
-    v = sum(hp.reshape(8, c)[t] * zp[:, 7 - t: 7 - t + m] for t in range(8))
+    zp = np.concatenate([np.zeros((batch, (tpb - 1) * c)), z],
+                        axis=-1).reshape(batch, m + tpb - 1, c)
+    v = sum(hp.reshape(tpb, c)[t] * zp[:, tpb - 1 - t: tpb - 1 - t + m] for t in range(tpb))
     ref = np.fft.fft(v, axis=-1)
     got = y.to_numpy_complex()
     assert got.shape == (batch, m, c)
@@ -293,9 +299,16 @@ def test_k6_on_cuda(dev, c, batch):
                                     hpt.float())
     plain = np.stack([pre.cpu().numpy(), pim.cpu().numpy()])
     assert _snr(plain, np.stack([got.real, got.imag])) >= 105.0
+    sre, sim = pfb_channelize_steps(xr.reshape(batch, m, c).double(),
+                                    xi.reshape(batch, m, c).double(), hpt.double().to(dev))
+    steps = np.stack([sre.cpu().numpy(), sim.cpu().numpy()])
+    assert _snr(steps, np.stack([got.real, got.imag])) >= 125.0
     frames = pfb_channelize_frames(ComplexArray(xr.reshape(batch, m, c),
                                                 xi.reshape(batch, m, c)), c, taps)
     assert torch.equal(frames.real, y.real) and torch.equal(frames.imag, y.imag)
+    short = pfb_channelize_frames(ComplexArray(xr.reshape(batch, m, c)[:, :3],
+                                               xi.reshape(batch, m, c)[:, :3]), c, taps)
+    assert torch.equal(short.real, y.real[:, :3]) and torch.equal(short.imag, y.imag[:, :3])
 
 
 def _cplanes(z):
@@ -303,7 +316,8 @@ def _cplanes(z):
 
 
 @pytest.mark.parametrize("batch,n,m", [(2, 256, 256), (2, 1024, 384), (2, 4096, 128),
-                                       (1, 1024, 1024), (3, 512, 100)])
+                                       (1, 1024, 1024), (3, 512, 100), (3, 2048, 100),
+                                       (2, 256, 5)])
 def test_k7_on_cuda(dev, batch, n, m):
     rng = np.random.default_rng(n + m)
     z = (rng.standard_normal((batch, n, m))
@@ -324,10 +338,20 @@ def test_k7_on_cuda(dev, batch, n, m):
     assert _snr(_cplanes(z64), host(back)) >= 120.0
     assert _snr(_cplanes(np.fft.fft(z64, axis=-2) * g64), host(folded)) >= 110.0
     assert _snr(_cplanes(np.fft.ifft(z64 * g64, axis=-2)), host(unfolded)) >= 110.0
+    fold64 = tuple(t.double() for t in fold)
     for inverse, got in ((False, folded), (True, unfolded)):
-        plain = fft_cuda.fft_cols_plain(re.double(), im.double(), inverse,
-                                        tuple(t.double() for t in fold))
+        plain = fft_cuda.fft_cols_plain(re.double(), im.double(), inverse, fold64)
         assert _snr(host(plain), host(got)) >= 125.0
+        steps = fft_cuda.fft_cols_steps(re.double(), im.double(), inverse, fold64)
+        assert _snr(host(steps), host(got)) >= 125.0
+    assert _snr(host(fft_cuda.fft_cols_steps(re.double(), im.double())), host(fwd)) >= 125.0
+    # the tile width changes which thread holds a point, not the result
+    for tile in (8, 16, 32):
+        if n // 16 * tile <= 1024:
+            other = fft_cuda._launch_fft_cols(re, im, False, fold, False, tile=tile)
+            assert torch.equal(other[0], folded[0]) and torch.equal(other[1], folded[1])
+    with pytest.raises(ValueError, match="the column FFT kernel takes a tile"):
+        fft_cuda._launch_fft_cols(re, im, False, None, False, tile=64)
     dre, dim_ = re.clone(), im.clone()
     out = fft_cuda.fft_cols_cuda(dre, dim_, fold=fold, donate=True)
     assert out[0].data_ptr() == dre.data_ptr() and out[1].data_ptr() == dim_.data_ptr()

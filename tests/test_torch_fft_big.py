@@ -5,7 +5,8 @@ inter-stage grids, the dispatch policy table, the four-step FFT, and the
 entries that route through them above 16384 points.
 
 K7 itself runs only on a CUDA card: tests/test_torch_cuda.py checks it
-there, and chip_smoke.py is its evidence."""
+there, and chip_smoke.py is its evidence; tests/test_torch_cols_pfb_regs.py
+holds its step-by-step version."""
 
 import importlib
 
@@ -179,12 +180,16 @@ def test_k7_input_rules():
     assert out[0].shape == (256, 4)
 
 
-@pytest.mark.parametrize("n,m,want", [(256, 4096, 32), (1024, 1024, 8), (4096, 128, 4),
-                                      (512, 100, 16), (256, 3, 4), (2048, 1, 1)])
+@pytest.mark.parametrize("n,m,want", [(256, 4096, 32), (1024, 1024, 16), (4096, 128, 4),
+                                      (512, 100, 32), (256, 3, 8), (2048, 1, 8)])
 def test_k7_tile_fits_shared_memory(n, m, want):
+    """The tile is as wide as 1024 threads allow, up to a warp; shared
+    memory holds the padded [row][column] exchange tile of both planes."""
     tile = fft_cuda.cols_tile(n, m)
     assert tile == want and tile & (tile - 1) == 0
-    assert 8 * n * tile <= 227 * 1024
+    assert n // 16 * tile <= 1024
+    words = fft_cuda.exchange_at(n, tile.bit_length() - 1, fft_cuda.COLS_PAD_SHIFT)
+    assert words == (n + n // 16) * tile and 8 * words <= 227 * 1024
 
 
 # ── ops.fft_big ──────────────────────────────────────────────────────

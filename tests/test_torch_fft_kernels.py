@@ -148,7 +148,8 @@ def test_k2_roundtrip_and_input_rules():
 
 @pytest.mark.parametrize("n", [2, 128, 1024, 16384])
 def test_k2_twiddles_bit_equal_to_jax(n):
-    """The radix-2 core reads the first n/2 entries of the one table."""
+    """The first n/2 entries of the one table are the JAX package's Stockham
+    twiddles, bit for bit."""
     c, s = fft_cuda.dft_table(n)
     jc, js = jfft._twiddles(n, -1.0, np.float32)
     assert c.dtype == np.float32

@@ -1,4 +1,4 @@
-"""The register-resident FFT core of K1-K5 (csrc/fft_regs.cuh,
+"""The register-resident FFT core of K1-K7 (csrc/fft_regs.cuh,
 csrc/onesided.cuh) on the CPU: its plan, its pass tables, its exchange
 layout, and its arithmetic repeated step by step in PyTorch
 (``fft_rows_steps``, ``spectrum_amp_phase_steps``,
@@ -117,7 +117,8 @@ def test_pass_twiddles_are_entries_of_the_one_table(n):
 
 def test_kernel_instances_carry_the_host_plans():
     """csrc/fft_regs.cuh instantiates one kernel per size from its own list
-    of plan codes; it must be the host's list, or a launch is refused."""
+    of plan codes; it must be the host's list, or a launch is refused. K6
+    and K7 take their instances from it too."""
     import re
 
     text = (fft_cuda._build.CSRC / "fft_regs.cuh").read_text()
@@ -126,6 +127,10 @@ def test_kernel_instances_carry_the_host_plans():
     assert sorted(listed) == list(range(1, 15))
     for log2n, code in listed.items():
         assert code == fft_cuda.plan_code(fft_cuda.radix_plan(1 << log2n)), log2n
+    # K6 and K7 instantiate from the same list: C = 128..16384, n = 256..4096
+    for source, sizes in (("pfb.cu", range(7, 15)), ("fft_cols.cu", range(8, 13))):
+        assert "FFT_PLANS(" in (fft_cuda._build.CSRC / source).read_text()
+        assert set(sizes) <= set(listed)
 
 
 @pytest.mark.parametrize("n", ROW_SIZES)
