@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's spectrum, spectrogram, FIR, channelizer and
-large-FFT paths once on one CUDA card and check them.
+"""Drive the PyTorch port's spectrum, spectrogram, FIR, channelizer,
+large-FFT, resampler and receiver paths once on one CUDA card and check
+them.
 
     python3 chip_smoke.py
 
@@ -66,7 +67,21 @@ Phases (one line each; any failed gate exits non-zero):
      movedim + K2;
  18. each kernel's time beside its bound (bytes over 3.35 TB/s or operations
      over 67 TFLOP/s, whichever is larger; K1, K3 and K4 counted as real-input
-     transforms), its plain version and the library.
+     transforms), its plain version and the library;
+ 19. config 3, the polyphase resampler (no kernel of K1-K7 on its path):
+     bench.py's call on the committed fixture, resample_poly 147/160 over
+     phase 10's [128, 480000] signal, upfirdn_step over it in chunks of
+     4800, the (3,4)(7,8)(7,5) cascade batch and streamed, decimate and
+     interpolate, each >= 100 dB against float64 scipy; the
+     len(taps) <= up - down guard; times (median and spread) and peak MB
+     beside the bytes bound;
+ 20. config 4, the receivers: bench.py's wbfm_demod over 1,050,000 IQ
+     samples, FmReceiver over [64, 2400000] complex (batch, and
+     stream_step over 50 chunks), AmReceiver over [64, 960000], each
+     >= 100 dB against an independent float64 scipy/numpy chain;
+     de-emphasis of 2^22 float32 samples >= 120 dB against float64
+     lfilter; numpy input lands on the card; times of the chain and its
+     stages; the launch counters of K1-K7 stay at 0 through phases 19-20.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -74,6 +89,7 @@ The line before the last is the kernels' JSON record; the last line is
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -146,6 +162,16 @@ LONG_CHANNELS = 32768
 LONG_TPB, LONG_FRAMES = 2, 16
 K7_TILES = (8, 16)       # columns per block tried at n = 1024 ([64, 1024, 1024])
 K7_TILES_256 = (8, 16, 32)   # and at n = 256 ([64, 256, 4096])
+C34_GATE_DB = 100.0      # bench.py:239 and :263, configs 3 and 4
+C3_CHUNK = 4800          # upfirdn_step chunks at 147/160: a whole number of 160s
+CASCADE = ((3, 4), (7, 8), (7, 5))   # 147/160 in three stages
+C4_BENCH_LEN = 1050000   # bench.py:245, IQ samples at 2.4 Msps
+C4_STATIONS, C4_LEN = 64, 2400000    # 64 FM channels x 1 s of 2.4 Msps IQ
+C4_CHUNKS = 50           # stream_step chunks of 48000 IQ samples
+C4_AM_LEN = 960000       # 1 s of 960 ksps AM IQ on each of the 64 rows
+DEEMPH_LEN = 1 << 22     # tests/test_fm_receiver.py:96-120's audit length
+DEEMPH_GATE_DB = 120.0   # that audit measured 131 dB on the CPU
+SPREAD_RUNS = 7          # windows of phases 19-20's times (median and spread)
 SPIN_CYCLES = 6_000_000  # a few ms of device spin ahead of a queued timing window
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, published
 F32_FLOPS_PER_S = 67e12      # H100 SXM, float32 outside the tensor cores
@@ -464,7 +490,12 @@ def main() -> int:
 
     # 6. times: median over runs of `inner` back-to-back calls, CUDA events
     def timed(fn, runs=11, inner=5, before=None, queued=False):
-        """``before`` runs ahead of each timed window (it refills a buffer
+        """The median of :func:`windows`."""
+        return float(np.median(windows(fn, runs, inner, before, queued)))
+
+    def windows(fn, runs, inner, before=None, queued=False):
+        """ms per call in each of ``runs`` windows of ``inner`` calls.
+        ``before`` runs ahead of each timed window (it refills a buffer
         that ``fn`` transforms in place, so the values stay finite).
         ``queued`` puts a device spin ahead of the window, so that the host
         has enqueued every launch before the first one runs: the device's
@@ -484,7 +515,7 @@ def main() -> int:
             b.record()
             b.synchronize()
             per.append(a.elapsed_time(b) / inner)
-        return float(np.median(per))
+        return per
 
     times = {}
     for batch, n in K1_SHAPES:
@@ -1547,6 +1578,210 @@ def main() -> int:
             f"({100 * bound_ms / ms:.1f}% of the time), plain {pms:.4f} ms, library "
             + ("none" if library_ms is None else f"{library_ms:.4f} ms")
             + f", launches on its path {count}")
+    # 19. config 3: the polyphase resampler. No kernel of K1-K7 lies on
+    # this path or the next: their counters must not move.
+    import gzip
+    from scipy.signal import lfilter, upfirdn as sp_upfirdn
+
+    from pragma_dsp_tpu_torch.models import AmReceiver, FmReceiver, wbfm_demod
+    from pragma_dsp_tpu_torch.ops import (decimate, deemphasis, fm_discriminate,
+                                          interpolate, resample_cascade_step,
+                                          resample_cascade_stream_init, resample_poly,
+                                          resample_poly_cascade, resampler_taps, upfirdn,
+                                          upfirdn_step, upfirdn_stream_init)
+
+    for key in fft_cuda.LAUNCHES:
+        fft_cuda.LAUNCHES[key] = 0
+
+    def spread(fn, runs=SPREAD_RUNS, inner=3) -> str:
+        """Median and spread of ``runs`` windows, and peak MB above the
+        inputs of one call."""
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e6
+        per = windows(fn, runs, inner)
+        return (float(np.median(per)), min(per), max(per), peak)
+
+    def show(tag, label, t, nbytes):
+        med, lo, hi, peak = t
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        say(f"[{tag}] {label} on {name} ({card}): {med:.4f} ms (spread {lo:.4f}..{hi:.4f} "
+            f"over {SPREAD_RUNS} windows), peak {peak:.1f} MB above the input; bound "
+            f"{bound:.4f} ms by bytes ({nbytes / 1e6:.1f} MB over 3.35 TB/s, "
+            f"{100 * bound / med:.1f}% of the time)")
+
+    fx_path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                           "dsp", "resampler.json.gz")
+    with gzip.open(fx_path, "rt", encoding="utf-8") as f:
+        fx = json.load(f)
+    c3 = {}
+    for c in fx["cases"]:                       # bench.py:229-239 as written
+        y = upfirdn(np.asarray(c["input"], np.float32), np.asarray(c["taps"]), c["up"],
+                    c["down"])
+        gate(y.is_cuda, f"config 3 fixture {c['name']}: the result is on {y.device}")
+        c3[c["name"]] = snr_db(c["output"], host(y))
+        gate(c3[c["name"]] >= C34_GATE_DB, f"config 3 fixture {c['name']}: {c3[c['name']]:.1f} dB")
+    rows3 = (0, 42, 85, C2_CHANNELS - 1)
+    x3 = host(xw[list(rows3)]).astype(np.float64)
+    h3 = resampler_taps(147, 160, FIR_TAPS)
+    ref3 = np.stack([sp_upfirdn(h3, r, 147, 160) for r in x3])
+    y3 = resample_poly(xw, 147, 160)
+    gate(y3.is_cuda and tuple(y3.shape) == (C2_CHANNELS, ref3.shape[-1]),
+         f"config 3 at full width: shape {tuple(y3.shape)} on {y3.device}")
+    c3[f"resample_poly [{C2_CHANNELS}, {C2_LEN}], 4 rows"] = snr_db(ref3, host(y3[list(rows3)]))
+    outs, st = [], upfirdn_stream_init(h3, 147, 160, (C2_CHANNELS,))
+    for i in range(C2_LEN // C3_CHUNK):
+        st, o = upfirdn_step(st, xw[:, i * C3_CHUNK:(i + 1) * C3_CHUNK], h3, 147, 160)
+        outs.append(o)
+    ys = torch.cat(outs, dim=-1)
+    gate(ys.is_cuda and st.tail.is_cuda, "config 3 stream: not on the card")
+    c3[f"upfirdn_step x{C2_LEN // C3_CHUNK}, 4 rows"] = snr_db(
+        ref3[:, :ys.shape[-1]], host(ys[list(rows3)]))
+    del outs, ys
+    ref_c = x3[:2]
+    for up, down in CASCADE:
+        ref_c = np.stack([sp_upfirdn(resampler_taps(up, down, 8 * max(up, down) + 1), r, up,
+                                     down) for r in ref_c])
+    yc = resample_poly_cascade(xw, CASCADE)
+    c3["cascade (3,4)(7,8)(7,5), 2 rows"] = snr_db(ref_c, host(yc[list(rows3[:2])]))
+    q = C3_CHUNK
+    outs, cst = [], resample_cascade_stream_init(CASCADE, batch_shape=(C2_CHANNELS,))
+    for i in range(C2_LEN // q):
+        cst, o = resample_cascade_step(cst, xw[:, i * q:(i + 1) * q], CASCADE)
+        outs.append(o)
+    ycs = torch.cat(outs, dim=-1)
+    c3[f"cascade streamed x{C2_LEN // q}, 2 rows"] = snr_db(
+        ref_c[:, :ycs.shape[-1]], host(ycs[list(rows3[:2])]))
+    del outs, ycs
+    row = x3[0].astype(np.float32)
+    yd, yi = decimate(row, 4), interpolate(row[:48000], 4)
+    gate(yd.is_cuda and yi.is_cuda, "decimate/interpolate of numpy input: not on the card")
+    h4 = design_lowpass(FIR_TAPS, 0.25)
+    c3["decimate 4"] = snr_db(sp_upfirdn(h4, row.astype(np.float64), 1, 4), host(yd))
+    c3["interpolate 4"] = snr_db(sp_upfirdn(h4 * 4, row[:48000].astype(np.float64), 4, 1),
+                                 host(yi))
+    for label, s in c3.items():
+        gate(s >= C34_GATE_DB, f"config 3 {label}: {s:.1f} dB")
+    try:
+        upfirdn_step(upfirdn_stream_init(np.ones(3), 5, 2), np.zeros(4, np.float32),
+                     np.ones(3), 5, 2)
+        gate(False, "upfirdn_step with len(taps) <= up - down did not raise")
+    except ValueError:
+        pass
+    say(f"[19] config 3 SNR vs float64 scipy (gate >= {C34_GATE_DB}): "
+        + ", ".join(f"{k} {v:.1f} dB" for k, v in c3.items())
+        + "; the len(taps) <= up - down guard raises; results on the card")
+    out3 = C2_CHANNELS * ref3.shape[-1]
+    show(19, f"resample_poly 147/160, {FIR_TAPS} taps, [{C2_CHANNELS}, {C2_LEN}]",
+         spread(lambda: resample_poly(xw, 147, 160)), 4 * (samples + out3))
+    show(19, "resample_poly_cascade (3,4)(7,8)(7,5)",
+         spread(lambda: resample_poly_cascade(xw, CASCADE)),
+         4 * (samples + C2_CHANNELS * yc.shape[-1]))
+    del y3, yc
+
+    # 20. config 4: the WBFM and AM receivers
+    liq = C4_BENCH_LEN                          # bench.py:241-263 as written
+    tiq = np.arange(liq) / 2.4e6
+    msg = 0.7 * np.sin(2 * np.pi * 1000.0 * tiq) + 0.2 * np.sin(2 * np.pi * 4000.0 * tiq)
+    ziq = np.exp(1j * (0.5 + 2 * np.pi * 75e3 * np.cumsum(msg) / 2.4e6))
+    rx = FmReceiver()
+    gate(rx.chan_band.is_cuda and rx.audio_band.is_cuda, "FmReceiver's buffers: not on the card")
+    alpha = float(np.exp(-1.0 / (240e3 * 75e-6)))
+
+    def wbfm_oracle(z):
+        """bench.py's independent float64 scipy/numpy chain."""
+        chan = sp_upfirdn(rx._chan_taps, z, 1, 10)
+        prev = np.concatenate([[1.0 + 0.0j], chan[:-1]])
+        xif = np.angle(chan * np.conj(prev)) * (240e3 / (2 * np.pi)) / 75e3
+        return sp_upfirdn(rx._audio_taps, lfilter([1.0 - alpha], [1.0, -alpha], xif), 1, 5)
+
+    audio = wbfm_demod(ziq.astype(np.complex64))
+    gate(audio.is_cuda, f"wbfm_demod of numpy IQ: the result is on {audio.device}")
+    ref = wbfm_oracle(ziq)
+    m = min(ref.shape[0], audio.shape[-1])
+    c4 = {f"wbfm_demod [{liq}] (bench.py)": snr_db(ref[:m], host(audio)[:m])}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    n4 = C4_LEN
+    t4 = torch.arange(n4, device=dev, dtype=torch.float64) / 2.4e6
+    tone = 1000.0 + 50.0 * torch.arange(C4_STATIONS, device=dev, dtype=torch.float64)
+    msg4 = (0.7 * torch.sin(2 * np.pi * tone[:, None] * t4)
+            + 0.2 * torch.sin(2 * np.pi * 4000.0 * t4))
+    ph4 = 0.5 + 2 * np.pi * 75e3 * torch.cumsum(msg4, dim=-1) / 2.4e6
+    iq4 = ComplexArray(torch.cos(ph4).float(), torch.sin(ph4).float())
+    iq4 = ComplexArray(iq4.real + 0.001 * torch.randn(iq4.real.shape, generator=gen, device=dev),
+                       iq4.imag + 0.001 * torch.randn(iq4.imag.shape, generator=gen, device=dev))
+    del t4, msg4, ph4
+    edge = [0, C4_STATIONS - 1]
+    z4 = host(iq4.real[edge]).astype(np.float64) + 1j * host(iq4.imag[edge])
+    ref4 = np.stack([wbfm_oracle(z) for z in z4])
+    y4 = rx(iq4)
+    gate(y4.is_cuda and tuple(y4.shape) == (C4_STATIONS, ref4.shape[-1]),
+         f"FmReceiver at full width: shape {tuple(y4.shape)} on {y4.device}")
+    c4[f"FmReceiver [{C4_STATIONS}, {n4}], rows 0 and {C4_STATIONS - 1}"] = snr_db(
+        ref4, host(y4[edge]))
+    outs, st = [], rx.stream_init((C4_STATIONS,))
+    chunk4 = n4 // C4_CHUNKS
+    for i in range(C4_CHUNKS):
+        st, o = rx.stream_step(st, ComplexArray(iq4.real[:, i * chunk4:(i + 1) * chunk4],
+                                                iq4.imag[:, i * chunk4:(i + 1) * chunk4]))
+        outs.append(o)
+    ys = torch.cat(outs, dim=-1)
+    gate(ys.is_cuda and st.audio.tail.is_cuda, "the WBFM stream: not on the card")
+    c4[f"stream_step x{C4_CHUNKS} of {chunk4}"] = snr_db(ref4[:, :ys.shape[-1]],
+                                                        host(ys[edge]))
+    del outs, ys, st
+    xd = np.random.default_rng(SEED).standard_normal(DEEMPH_LEN)
+    yd = deemphasis(xd.astype(np.float32), 240e3)
+    gate(yd.is_cuda, f"deemphasis of numpy input: the result is on {yd.device}")
+    deemph_db = snr_db(lfilter([1.0 - alpha], [1.0, -alpha], xd), host(yd))
+    gate(deemph_db >= DEEMPH_GATE_DB, f"deemphasis 2^22: {deemph_db:.1f} dB")
+    am = AmReceiver()
+    ta = torch.arange(C4_AM_LEN, device=dev, dtype=torch.float64) / 960e3
+    env_a = 1.0 + 0.5 * torch.sin(2 * np.pi * (1000.0 + 50.0 * torch.arange(
+        C4_STATIONS, device=dev, dtype=torch.float64))[:, None] * ta)
+    iqa = ComplexArray((env_a * torch.cos(2 * np.pi * 5000.0 * ta)).float(),
+                       (env_a * torch.sin(2 * np.pi * 5000.0 * ta)).float())
+    del ta, env_a
+    ya = am(iqa)
+    za = host(iqa.real[edge]).astype(np.float64) + 1j * host(iqa.imag[edge])
+    ref_a = []
+    for z in za:
+        env = np.abs(sp_upfirdn(am._chan_taps, z, 1, 10))
+        ref_a.append(sp_upfirdn(am._audio_taps, env - env.mean(), 1, 2))
+    gate(ya.is_cuda and tuple(ya.shape) == (C4_STATIONS, ref_a[0].shape[-1]),
+         f"AmReceiver at full width: shape {tuple(ya.shape)} on {ya.device}")
+    c4[f"AmReceiver [{C4_STATIONS}, {C4_AM_LEN}], rows 0 and {C4_STATIONS - 1}"] = snr_db(
+        np.stack(ref_a), host(ya[edge]))
+    for label, s in c4.items():
+        gate(s >= C34_GATE_DB, f"config 4 {label}: {s:.1f} dB")
+    say(f"[20] config 4 SNR vs float64 scipy/numpy chains (gate >= {C34_GATE_DB}): "
+        + ", ".join(f"{k} {v:.1f} dB" for k, v in c4.items())
+        + f"; deemphasis of 2^22 float32 samples vs float64 lfilter {deemph_db:.1f} dB "
+        f"(gate >= {DEEMPH_GATE_DB}); results on the card")
+    out4 = 4 * C4_STATIONS * y4.shape[-1]
+    chan = rx._channel(iq4)
+    aif = fm_discriminate(chan, sample_rate=240e3, deviation=75e3)
+    dem = deemphasis(aif, 240e3)
+    n_if = 4 * chan.real.numel()
+    show(20, f"FmReceiver [{C4_STATIONS}, {n4}] complex64, whole", spread(lambda: rx(iq4)),
+         8 * C4_STATIONS * n4 + out4)
+    for label, fn, nbytes in (
+            ("  channel stage (upfirdn 1/10, both planes)", lambda: rx._channel(iq4),
+             8 * C4_STATIONS * n4 + 2 * n_if),
+            ("  discriminator", lambda: fm_discriminate(chan, sample_rate=240e3,
+                                                         deviation=75e3), 3 * n_if),
+            ("  de-emphasis", lambda: deemphasis(aif, 240e3), 2 * n_if),
+            ("  audio stage (upfirdn 1/5)", lambda: rx._audio(dem), n_if + out4)):
+        show(20, label, spread(fn), nbytes)
+    show(20, f"AmReceiver [{C4_STATIONS}, {C4_AM_LEN}] complex64, whole", spread(lambda: am(iqa)),
+         8 * C4_STATIONS * C4_AM_LEN + 4 * ya.numel())
+    del chan, aif, dem, y4, iq4, iqa, ya
+    moved = {k: v for k, v in fft_cuda.LAUNCHES.items() if v}
+    say(f"[20] launches of K1-K7 during phases 19-20: {moved or 'none'}")
+    gate(not moved, f"phases 19-20 launched {moved}")
+
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))

@@ -15,8 +15,11 @@ import torch
 
 from ..core.complex import ComplexArray, tensor_to_numpy
 from ..core.device import resolve_device
+from ..models.fm_receiver import WbfmStreamState
 from ..ops.channelizer import PfbFramesState, PfbState
+from ..ops.demod import FmDemodState
 from ..ops.fir import FirState
+from ..ops.polyphase import CascadeState, UpfirdnState
 from ..public.spectrum import SpectrumPeak, SpectrumResult
 from ..stream.stft import StftState
 
@@ -24,7 +27,11 @@ __all__ = ["complex_from_numpy", "to_numpy", "result_to_numpy",
            "state_to_numpy", "state_from_numpy", "stft_state_to_numpy", "stft_state_from_numpy",
            "fir_state_to_numpy", "fir_state_from_numpy",
            "pfb_state_to_numpy", "pfb_state_from_numpy",
-           "pfb_frames_state_to_numpy", "pfb_frames_state_from_numpy"]
+           "pfb_frames_state_to_numpy", "pfb_frames_state_from_numpy",
+           "upfirdn_state_to_numpy", "upfirdn_state_from_numpy",
+           "cascade_state_to_numpy", "cascade_state_from_numpy",
+           "fm_demod_state_to_numpy", "fm_demod_state_from_numpy",
+           "wbfm_stream_state_to_numpy", "wbfm_stream_state_from_numpy"]
 
 
 def complex_from_numpy(z, dtype=None, device=None) -> ComplexArray:
@@ -58,20 +65,45 @@ def _leaf_from_numpy(a, dtype, device) -> torch.Tensor:
     return torch.as_tensor(np.array(a), dtype=dtype, device=resolve_device(device))
 
 
+# The carries of this package by name: a nested carry of the JAX twin
+# (WbfmStreamState's UpfirdnStates, CascadeState's stages) becomes this
+# package's class of the same name.
+_CARRIES = {c.__name__: c for c in (StftState, FirState, PfbState, PfbFramesState,
+                                     UpfirdnState, CascadeState, FmDemodState,
+                                     WbfmStreamState)}
+
+
+def _map_carry(fn, state, cls=None):
+    """``fn`` on every leaf of a carry, rebuilt as ``cls`` at the top;
+    nested NamedTuples as this package's class of their name, tuples as
+    tuples."""
+    if cls is None and isinstance(state, tuple) and hasattr(state, "_fields"):
+        cls = _CARRIES.get(type(state).__name__, type(state))
+    if cls is not None:
+        return cls(*(_map_carry(fn, f) for f in state))
+    if isinstance(state, (tuple, list)):
+        return tuple(_map_carry(fn, f) for f in state)
+    return fn(state)
+
+
 def state_to_numpy(cls, state):
-    """A streaming carry (this package's ``cls`` or the JAX package's twin)
-    as a ``cls`` of numpy arrays."""
-    return cls(*map(_leaf_to_numpy, state))
+    """A streaming carry (this package's ``cls`` or the JAX package's twin,
+    nested carries included) as a ``cls`` of numpy arrays."""
+    return _map_carry(_leaf_to_numpy, state, cls)
 
 
 def state_from_numpy(cls, state, dtype=None, device=None):
-    """A carry of array-likes (numpy, or the JAX twin's arrays) as a ``cls``
-    of tensors on ``device`` (None: the default device)."""
-    return cls(*(_leaf_from_numpy(a, dtype, device) for a in state))
+    """A carry of array-likes (numpy, or the JAX twin's arrays; nested
+    carries included) as a ``cls`` of tensors on ``device`` (None: the
+    default device)."""
+    return _map_carry(lambda a: _leaf_from_numpy(a, dtype, device), state, cls)
 
 
 # The named converters of each streaming carry: StftState (tail), FirState
-# (tail), PfbState (flat tail planes), PfbFramesState ([..., T-1, C] planes).
+# (tail), PfbState (flat tail planes), PfbFramesState ([..., T-1, C] planes),
+# UpfirdnState (tail), CascadeState (a tuple of UpfirdnStates), FmDemodState
+# (the last IQ sample), WbfmStreamState (three UpfirdnStates, an
+# FmDemodState and the de-emphasis output).
 stft_state_to_numpy = partial(state_to_numpy, StftState)
 stft_state_from_numpy = partial(state_from_numpy, StftState)
 fir_state_to_numpy = partial(state_to_numpy, FirState)
@@ -80,3 +112,11 @@ pfb_state_to_numpy = partial(state_to_numpy, PfbState)
 pfb_state_from_numpy = partial(state_from_numpy, PfbState)
 pfb_frames_state_to_numpy = partial(state_to_numpy, PfbFramesState)
 pfb_frames_state_from_numpy = partial(state_from_numpy, PfbFramesState)
+upfirdn_state_to_numpy = partial(state_to_numpy, UpfirdnState)
+upfirdn_state_from_numpy = partial(state_from_numpy, UpfirdnState)
+cascade_state_to_numpy = partial(state_to_numpy, CascadeState)
+cascade_state_from_numpy = partial(state_from_numpy, CascadeState)
+fm_demod_state_to_numpy = partial(state_to_numpy, FmDemodState)
+fm_demod_state_from_numpy = partial(state_from_numpy, FmDemodState)
+wbfm_stream_state_to_numpy = partial(state_to_numpy, WbfmStreamState)
+wbfm_stream_state_from_numpy = partial(state_from_numpy, WbfmStreamState)

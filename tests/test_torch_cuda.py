@@ -5,7 +5,8 @@ bit-equal to K1 on the same frames; K5a/K5b (circular convolution) at
 >=125 dB and K6 (the channelizer) at >=105 dB, with their routes' launch
 counts; K7 (the column FFT) at >=110 dB forward and >=120 dB roundtrip,
 and the large-FFT path (K7 then K2) with the entries that ride it above
-16384 points.
+16384 points; the polyphase resampler and the WBFM and AM receivers (no
+kernel of K1-K7 on their path) against scipy in float64.
 
 These tests skip without a card. The file imports neither JAX nor the
 JAX package, so it also runs where JAX is not installed:
@@ -570,3 +571,79 @@ def test_host_input_lands_on_the_card(dev):
     y = fir_filter(x, np.ones(8, np.float32))
     assert y.is_cuda and dispatch.fft(x).real.is_cuda
     assert spectrum(torch.from_numpy(x)).amplitude.device.type == "cpu"
+
+
+@pytest.mark.parametrize("up,down,k", [(147, 160, 127), (3, 2, 127), (1, 10, 127),
+                                       (4, 1, 63), (1, 1, 31)])
+def test_upfirdn_on_cuda(dev, up, down, k):
+    """The banded product (the convolution at 1/1) on the card, numpy
+    input with no device named, against scipy in float64; complex input
+    shares one product; the stream is the batch prefix; no kernel of
+    K1-K7 is launched."""
+    from scipy import signal as sps
+
+    from pragma_dsp_tpu_torch.ops import resampler_taps, upfirdn, upfirdn_step
+    from pragma_dsp_tpu_torch.ops import upfirdn_stream_init
+
+    rng = np.random.default_rng(up * down + k)
+    h = resampler_taps(up, down, k)
+    x = rng.standard_normal((3, 9600)).astype(np.float32)
+    before = dict(fft_cuda.LAUNCHES)
+    y = upfirdn(x, h, up, down)
+    assert y.is_cuda and y.dtype == torch.float32
+    ref = np.stack([sps.upfirdn(h, r.astype(np.float64), up, down) for r in x])
+    assert y.shape == ref.shape and _snr(ref, y.cpu().numpy()) >= 120.0
+    z = ComplexArray(torch.from_numpy(x).to(dev), torch.from_numpy(x[::-1].copy()).to(dev))
+    yc = upfirdn(z, h, up, down)
+    assert _snr(ref, yc.real.cpu().numpy()) >= 120.0
+    assert _snr(ref[::-1], yc.imag.cpu().numpy()) >= 120.0
+    chunk = 4800
+    st = upfirdn_stream_init(h, up, down, (3,))
+    outs = []
+    for i in range(2):
+        st, o = upfirdn_step(st, x[:, i * chunk:(i + 1) * chunk], h, up, down)
+        outs.append(o)
+    got = torch.cat(outs, -1).cpu().numpy()
+    assert st.tail.is_cuda and _snr(ref[:, :got.shape[-1]], got) >= 120.0
+    assert dict(fft_cuda.LAUNCHES) == before
+
+
+def test_receivers_on_cuda(dev):
+    """FmReceiver and AmReceiver on the card from numpy IQ, against
+    bench.py's independent float64 chain (>= 100 dB), streamed and batch."""
+    from scipy.signal import lfilter, upfirdn as sp_upfirdn
+
+    from pragma_dsp_tpu_torch.models import AmReceiver, FmReceiver, wbfm_demod
+
+    n = 48000
+    t = np.arange(n) / 2.4e6
+    msg = 0.7 * np.sin(2 * np.pi * 1000.0 * t) + 0.2 * np.sin(2 * np.pi * 4000.0 * t)
+    z = np.exp(1j * (0.5 + 2 * np.pi * 75e3 * np.cumsum(msg) / 2.4e6))
+    rx = FmReceiver()
+    assert rx.chan_band.is_cuda and rx.audio_band.is_cuda
+    before = dict(fft_cuda.LAUNCHES)
+    audio = rx(z.astype(np.complex64))
+    assert audio.is_cuda and audio.dtype == torch.float32
+    chan = sp_upfirdn(rx._chan_taps, z, 1, 10)
+    dphi = np.angle(chan * np.conj(np.concatenate([[1.0 + 0.0j], chan[:-1]])))
+    alpha = float(np.exp(-1.0 / (240e3 * 75e-6)))
+    yif = lfilter([1.0 - alpha], [1.0, -alpha], dphi * (240e3 / (2 * np.pi)) / 75e3)
+    ref = sp_upfirdn(rx._audio_taps, yif, 1, 5)
+    got = audio.cpu().numpy()
+    assert got.shape == ref.shape and _snr(ref, got) >= 100.0
+    assert torch.equal(wbfm_demod(z.astype(np.complex64)), audio)
+    st = rx.stream_init()
+    outs = []
+    for i in range(4):
+        st, o = rx.stream_step(st, z[i * 12000:(i + 1) * 12000].astype(np.complex64))
+        outs.append(o)
+    streamed = torch.cat(outs).cpu().numpy()
+    assert _snr(ref[:streamed.size], streamed) >= 100.0
+    am = AmReceiver()
+    ta = np.arange(19200) / 960e3
+    za = (1.0 + 0.5 * np.sin(2 * np.pi * 1000.0 * ta)) * np.exp(1j * 2 * np.pi * 5000.0 * ta)
+    env = np.abs(sp_upfirdn(am._chan_taps, za, 1, 10))
+    ref_am = sp_upfirdn(am._audio_taps, env - env.mean(), 1, 2)
+    got_am = am(za.astype(np.complex64)).cpu().numpy()
+    assert got_am.shape == ref_am.shape and _snr(ref_am, got_am) >= 100.0
+    assert dict(fft_cuda.LAUNCHES) == before
