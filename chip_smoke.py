@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's spectrum, spectrogram, FIR, channelizer,
-large-FFT, resampler and receiver paths once on one CUDA card and check
-them.
+large-FFT, resampler and receiver paths, its parallel/ layer and its
+utils/ once on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -82,6 +82,23 @@ Phases (one line each; any failed gate exits non-zero):
      de-emphasis of 2^22 float32 samples >= 120 dB against float64
      lfilter; numpy input lands on the card; times of the chain and its
      stages; the launch counters of K1-K7 stay at 0 through phases 19-20.
+ 21. parallel/ on the card, in a 1-rank NCCL group (init_multihost on a free
+     local port, barrier, health_check): sharded_fir_filter over phase 12's
+     [128, 480000], sharded_spectrogram over [128, 479232] (468 hops: a
+     block must be a multiple of hop), sharded_pfb_channelize over 1e8 IQ
+     samples and sharded_pfb_channelize_frames over [393216, 256] frames
+     (both layouts), sharded_channel_power, sharded_resample_poly 147/160,
+     sharded_wbfm_demod over [64, 2.4e6] and dist_fft/dist_ifft of
+     [64, 1024, 1024] (chunks 1 and 4), each counted one call at a time,
+     against float64 (the path's gate) and against the direct op on the
+     same card (torch.equal on the K4 and K6 routes, else >= 125 dB), and
+     timed beside it (median and spread, peak MB); dist_fft by chunk depth
+     (optimal_chunks' per-chunk cost); dryrun_multichip();
+ 22. utils/ on the card: the device idle share of spectrum() and of the
+     flagship step through profiling.trace, a BenchContext section,
+     save_state/restore_state of a PfbState on the card, and sanitizer_mode
+     (every kernel wrapper launches its kernel once inside it, as outside,
+     with the same result; a NaN from a torch operation raises there).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -172,6 +189,16 @@ C4_AM_LEN = 960000       # 1 s of 960 ksps AM IQ on each of the 64 rows
 DEEMPH_LEN = 1 << 22     # tests/test_fm_receiver.py:96-120's audit length
 DEEMPH_GATE_DB = 120.0   # that audit measured 131 dB on the CPU
 SPREAD_RUNS = 7          # windows of phases 19-20's times (median and spread)
+SPEC_HOPS = 468          # phase 21's spectrogram block, 479232 samples: the
+                         # block must be a multiple of hop, 480000 is 468.75 hops
+PFB_CHECK_FRAMES = 4096  # frames of the 1e8-sample PFB held against float64 numpy
+C5_FRAMES_WIDE = 3 << 17     # [393216, 256] frames, 1.007e8 samples: n_fft divides it
+POWER_NFFT = 128
+FFT_SHAPE = (64, 1024, 1024)     # phase 17's [64, 2^20] as (N2, N1) views
+FFT_ROWS = (0, 21, 42, 63)       # batch rows held against float64 numpy
+FFT_SWEEP = (1, 2, 4, 8)         # chunk depths timed on one rank
+PAR_VS_DIRECT_DB = 125.0     # a sharded entry against the direct op on the same card
+IDLE_CALLS = 5           # calls in each phase-22 trace
 SPIN_CYCLES = 6_000_000  # a few ms of device spin ahead of a queued timing window
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, published
 F32_FLOPS_PER_S = 67e12      # H100 SXM, float32 outside the tensor cores
@@ -1781,6 +1808,358 @@ def main() -> int:
     moved = {k: v for k, v in fft_cuda.LAUNCHES.items() if v}
     say(f"[20] launches of K1-K7 during phases 19-20: {moved or 'none'}")
     gate(not moved, f"phases 19-20 launched {moved}")
+
+    # 21. parallel/ on the card: a 1-rank NCCL group. Every entry at full
+    # width, counted one call at a time, against float64 and against the
+    # direct op on the same card, and timed beside it.
+    import shutil
+    import socket
+    import tempfile
+
+    import torch.distributed as tdist
+
+    from pragma_dsp_tpu_torch import parallel as par
+    from pragma_dsp_tpu_torch.entry import dryrun_multichip
+    from pragma_dsp_tpu_torch.ops.fft_big import ifft_big_from_permuted
+    from pragma_dsp_tpu_torch.xform import create_window
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        free_port = s.getsockname()[1]
+    par.init_multihost(coordinator_address=f"127.0.0.1:{free_port}", num_processes=1,
+                       process_id=0)
+    par.barrier(timeout_s=60)
+    health = par.health_check()
+    gate(tdist.get_backend() == "nccl" and health["platform"] == "gpu"
+         and health["process_count"] == 1 and health["devices"][0]["kind"] == name,
+         f"init_multihost/health_check: {tdist.get_backend()}, {health}")
+    mesh = par.data_mesh()
+    gate(mesh.device_type == "cuda" and mesh.size() == 1, f"data_mesh(): {mesh}")
+    say(f"[21] init_multihost: a {tdist.get_backend()} group of {tdist.get_world_size()} on "
+        f"{name}; barrier(timeout_s=60) passed; health_check {health}")
+
+    def launched(fn):
+        """fn() with every launch counter set to 0 just before: (its result,
+        the counters it moved)."""
+        for key in fft_cuda.LAUNCHES:
+            fft_cuda.LAUNCHES[key] = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: v for k, v in fft_cuda.LAUNCHES.items() if v}
+
+    def planes(o):
+        """The tensors of a result: a spectrogram's amplitude and phase, a
+        ComplexArray's planes, a tuple's tensors, or the tensor."""
+        if hasattr(o, "amplitude"):
+            return (o.amplitude, o.phase)
+        if isinstance(o, ComplexArray):
+            return (o.real, o.imag)
+        if isinstance(o, tuple):
+            return tuple(t for t in o if t is not None)
+        return (o,)
+
+    par_launches, par_f64, par_direct = {}, {}, {}
+
+    def held(label, sharded, direct, want, equal_expected):
+        """The sharded entry counted (its launches must be ``want``), against
+        the direct op on the same input: torch.equal where a frame's result
+        does not depend on its place, else >= PAR_VS_DIRECT_DB; then both
+        timed. Returns the sharded result."""
+        got, moved = launched(sharded)
+        par_launches[label] = moved
+        gate(moved == want, f"{label}: launched {moved}, expected {want}")
+        ref = direct()
+        gp, rp = planes(got), planes(ref)
+        gate(all(a.shape == b.shape for a, b in zip(gp, rp)),
+             f"{label}: shapes {[tuple(a.shape) for a in gp]} vs {[tuple(b.shape) for b in rp]}")
+        equal = all(torch.equal(a, b) for a, b in zip(gp, rp))
+        s = dev_snr_db(rp, gp)
+        par_direct[label] = (equal, s)
+        if equal_expected:
+            gate(equal, f"{label}: not equal to the direct op ({s:.1f} dB)")
+        else:
+            gate(s >= PAR_VS_DIRECT_DB, f"{label}: {s:.1f} dB against the direct op")
+        t_sh = spread(sharded)
+        t_di = spread(direct)
+        par_ms[label] = (t_sh, t_di)
+        say(f"[21] {label} on {name} ({card}): sharded {t_sh[0]:.4f} ms (spread "
+            f"{t_sh[1]:.4f}..{t_sh[2]:.4f}), peak {t_sh[3]:.1f} MB; direct {t_di[0]:.4f} ms "
+            f"(spread {t_di[1]:.4f}..{t_di[2]:.4f}), peak {t_di[3]:.1f} MB; 1-rank cost "
+            f"{t_sh[0] - t_di[0]:+.4f} ms ({100 * (t_sh[0] / t_di[0] - 1):+.1f}%); launches "
+            f"{moved or 'none'}; vs direct " + ("torch.equal" if equal else f"{s:.1f} dB"))
+        return got
+
+    par_ms = {}
+    fir_taps = design_lowpass(FIR_TAPS, FIR_CUTOFF).astype(np.float32)   # phase 12's
+    prow = [0, 42, 85, C2_CHANNELS - 1]
+    xr64 = host(xw[prow]).astype(np.float64)
+    # sharded_fir_filter: phase 12's 127 taps over [128, 480000] (K2 + K5b)
+    y = held(f"sharded_fir_filter {FIR_TAPS} taps [{C2_CHANNELS}, {C2_LEN}]",
+             lambda: par.sharded_fir_filter(xw, fir_taps, mesh),
+             lambda: fir_filter(xw, fir_taps), {"fft_rows": 1, "osconv_pair": 1}, False)
+    par_f64["fir"] = snr_db(lfilter(fir_taps.astype(np.float64), 1.0, xr64, axis=-1),
+                            host(y[prow]))
+    gate(par_f64["fir"] >= FIR_GATE_DB, f"sharded FIR vs float64: {par_f64['fir']:.1f} dB")
+    del y
+    # sharded_spectrogram: n 4096, hop 1024 over [128, 479232], 468 hops a
+    # block (the block must be a multiple of hop: 480000 is 468.75 hops)
+    x479 = xw[:, :SPEC_HOPS * C2_HOP].contiguous()
+    r = held(f"sharded_spectrogram n {C2_N} hop {C2_HOP} [{C2_CHANNELS}, {x479.shape[-1]}]",
+             lambda: par.sharded_spectrogram(x479, C2_N, C2_HOP, "hann", SR, mesh=mesh),
+             lambda: spectrogram(x479, C2_N, C2_HOP, "hann", SR), {"stft_onesided": 1}, True)
+    nf = r.amplitude.shape[-2]
+    gate(nf == 1 + (x479.shape[-1] - C2_N) // C2_HOP, f"sharded spectrogram: {nf} frames")
+    fidx = np.arange(nf)[:, None] * C2_HOP + np.arange(C2_N)[None, :]
+    par_f64["spectrogram"] = snr_db(onesided_oracle(xr64[:, :x479.shape[-1]][:, fidx], win),
+                                    host(r.amplitude[prow]))
+    gate(par_f64["spectrogram"] >= GATE_DB,
+         f"sharded spectrogram vs float64: {par_f64['spectrogram']:.1f} dB")
+    del r, x479
+    # sharded_pfb_channelize: 1e8 IQ samples, C = 256, T = 8 (K6), both layouts
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    xwide = ComplexArray(torch.randn(C5_WIDE, generator=gen, device=dev),
+                         torch.randn(C5_WIDE, generator=gen, device=dev))
+    taps64 = pfb_taps(C5_CHANNELS, C5_TPB)
+    zhead = host(xwide.real[:PFB_CHECK_FRAMES * C5_CHANNELS]).astype(np.float64) \
+        + 1j * host(xwide.imag[:PFB_CHECK_FRAMES * C5_CHANNELS])
+    yhead = pfb_oracle(zhead, taps64, C5_CHANNELS)
+    for turn in (True, False):
+        y = held(f"sharded_pfb_channelize [{C5_WIDE}] C={C5_CHANNELS} channels_sharded_out={turn}",
+                 lambda: par.sharded_pfb_channelize(xwide, C5_CHANNELS, mesh=mesh,
+                                                    channels_sharded_out=turn),
+                 lambda: pfb_channelize(xwide, C5_CHANNELS), {"pfb": 1}, True)
+        par_f64[f"pfb turn={turn}"] = csnr_db(yhead, host(y.real[:PFB_CHECK_FRAMES]),
+                                              host(y.imag[:PFB_CHECK_FRAMES]))
+        gate(par_f64[f"pfb turn={turn}"] >= GATE_DB,
+             f"sharded PFB vs float64: {par_f64[f'pfb turn={turn}']:.1f} dB")
+        del y
+    del xwide
+    # sharded_pfb_channelize_frames and sharded_channel_power: [393216, 256]
+    # frames (n_fft = 128 must divide the frame count)
+    fr = ComplexArray(torch.randn((C5_FRAMES_WIDE, C5_CHANNELS), generator=gen, device=dev),
+                      torch.randn((C5_FRAMES_WIDE, C5_CHANNELS), generator=gen, device=dev))
+    t0 = time.perf_counter()
+    y64 = pfb_oracle(host(fr.real).astype(np.float64).ravel() + 1j * host(fr.imag).ravel(),
+                     taps64, C5_CHANNELS)
+    nseg = C5_FRAMES_WIDE // POWER_NFFT
+    wv = window_values("hann", POWER_NFFT)
+    segs = np.fft.fft(y64.reshape(nseg, POWER_NFFT, C5_CHANNELS) * wv[None, :, None], axis=1)
+    p64 = (np.abs(segs) ** 2).mean(axis=0) / (POWER_NFFT * np.sum(wv ** 2))
+    del segs
+    say(f"[21] float64 numpy PFB and Welch of [{C5_FRAMES_WIDE}, {C5_CHANNELS}] in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for turn in (True, False):
+        y = held(f"sharded_pfb_channelize_frames [{C5_FRAMES_WIDE}, {C5_CHANNELS}] "
+                 f"channels_sharded_out={turn}",
+                 lambda: par.sharded_pfb_channelize_frames(fr, C5_CHANNELS, mesh=mesh,
+                                                           channels_sharded_out=turn),
+                 lambda: pfb_channelize_frames(fr, C5_CHANNELS), {"pfb": 1}, True)
+        par_f64[f"pfb frames turn={turn}"] = csnr_db(y64, host(y.real), host(y.imag))
+        gate(par_f64[f"pfb frames turn={turn}"] >= GATE_DB,
+             f"sharded PFB frames vs float64: {par_f64[f'pfb frames turn={turn}']:.1f} dB")
+        del y
+    del y64
+    wpow = float(np.sum(wv ** 2))
+
+    def direct_power():
+        """The same Welch over the direct channelizer, in torch."""
+        y = pfb_channelize_frames(fr, C5_CHANNELS)
+        seg = (nseg, POWER_NFFT, C5_CHANNELS)
+        w = create_window("hann", POWER_NFFT, device=dev)[:, None]
+        spec = dispatch.fft(ComplexArray(y.real.reshape(seg) * w, y.imag.reshape(seg) * w),
+                            axis=-2)
+        return torch.sum(spec.real * spec.real + spec.imag * spec.imag, dim=-3) / (
+            nseg * POWER_NFFT * wpow)
+
+    pw = held(f"sharded_channel_power [{C5_FRAMES_WIDE}, {C5_CHANNELS}] n_fft {POWER_NFFT}",
+              lambda: par.sharded_channel_power(fr, C5_CHANNELS, mesh=mesh, n_fft=POWER_NFFT),
+              direct_power, {"pfb": 1, "fft_rows": 1}, False)
+    par_f64["channel power"] = snr_db(p64, host(pw))
+    gate(par_f64["channel power"] >= GATE_DB,
+         f"sharded channel power vs float64 Welch: {par_f64['channel power']:.1f} dB")
+    del pw, fr, p64
+    # sharded_resample_poly 147/160 over [128, 480000] (no kernel)
+    y = held(f"sharded_resample_poly 147/160 [{C2_CHANNELS}, {C2_LEN}]",
+             lambda: par.sharded_resample_poly(xw, 147, 160, mesh=mesh),
+             lambda: resample_poly(xw, 147, 160)[..., :C2_LEN * 147 // 160], {}, False)
+    par_f64["resample_poly"] = snr_db(np.stack([sp_upfirdn(h3, r, 147, 160) for r in xr64])
+                                      [:, :y.shape[-1]], host(y[prow]))
+    gate(par_f64["resample_poly"] >= C34_GATE_DB,
+         f"sharded resample_poly vs float64: {par_f64['resample_poly']:.1f} dB")
+    del y
+    # sharded_wbfm_demod over [64, 2.4e6] complex64 (phase 20's signal; no kernel)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t4 = torch.arange(n4, device=dev, dtype=torch.float64) / 2.4e6
+    tone = 1000.0 + 50.0 * torch.arange(C4_STATIONS, device=dev, dtype=torch.float64)
+    ph4 = 0.5 + 2 * np.pi * 75e3 * torch.cumsum(
+        0.7 * torch.sin(2 * np.pi * tone[:, None] * t4)
+        + 0.2 * torch.sin(2 * np.pi * 4000.0 * t4), dim=-1) / 2.4e6
+    iq4 = ComplexArray(torch.cos(ph4).float(), torch.sin(ph4).float())
+    iq4 = ComplexArray(iq4.real + 0.001 * torch.randn(iq4.real.shape, generator=gen, device=dev),
+                       iq4.imag + 0.001 * torch.randn(iq4.imag.shape, generator=gen, device=dev))
+    del t4, ph4
+    a4 = held(f"sharded_wbfm_demod [{C4_STATIONS}, {n4}] complex64",
+              lambda: par.sharded_wbfm_demod(iq4, mesh),
+              lambda: rx(iq4)[..., :(n4 // rx.chunk_quantum) * rx._up], {}, False)
+    z4 = host(iq4.real[edge]).astype(np.float64) + 1j * host(iq4.imag[edge])
+    par_f64["wbfm"] = snr_db(np.stack([wbfm_oracle(z) for z in z4])[:, :a4.shape[-1]],
+                             host(a4[edge]))
+    gate(par_f64["wbfm"] >= C34_GATE_DB, f"sharded WBFM vs float64: {par_f64['wbfm']:.1f} dB")
+    del a4, iq4
+    # dist_fft / dist_ifft of [64, 1024, 1024] complex f32, chunks 1 (the auto
+    # choice on one rank) and 4: K7 with the fold and K2; K2 inverse and K7
+    gate(par.optimal_chunks(*FFT_SHAPE[1:], 1) == 1, "optimal_chunks on one rank is not 1")
+    gate(big_split(FFT_SHAPE[1] * FFT_SHAPE[2]) == FFT_SHAPE[1:],
+         f"big_split(2^20) is not {FFT_SHAPE[1:]}: fft_big_permuted is no direct op")
+    zf = ComplexArray(torch.randn(FFT_SHAPE, generator=gen, device=dev),
+                      torch.randn(FFT_SHAPE, generator=gen, device=dev))
+    zrows = host(zf.real[list(FFT_ROWS)]).astype(np.float64) + 1j * host(zf.imag[list(FFT_ROWS)])
+    n2f, n1f = FFT_SHAPE[1:]
+    ref_perm = np.swapaxes(np.fft.fft(zrows.reshape(len(FFT_ROWS), -1), axis=-1)
+                           .reshape(len(FFT_ROWS), n1f, n2f), -1, -2)
+    flat = ComplexArray(zf.real.reshape(FFT_SHAPE[0], -1), zf.imag.reshape(FFT_SHAPE[0], -1))
+    for chunks in (1, 4):
+        p = held(f"dist_fft {list(FFT_SHAPE)} chunks {chunks}",
+                 lambda: par.dist_fft(zf, mesh, chunks=chunks),
+                 lambda: fft_big_permuted(flat), {"fft_cols": 1, "fft_rows": chunks}, False)
+        par_f64[f"dist_fft chunks {chunks}"] = csnr_db(
+            ref_perm, host(p.real[list(FFT_ROWS)]), host(p.imag[list(FFT_ROWS)]))
+        rt = held(f"dist_ifft {list(FFT_SHAPE)} chunks {chunks}",
+                  lambda: par.dist_ifft(p, mesh, chunks=chunks),
+                  lambda: ComplexArray(*(t.reshape(FFT_SHAPE)
+                                         for t in ifft_big_from_permuted(p))),
+                  {"fft_rows": 1, "fft_cols": chunks}, False)
+        par_f64[f"roundtrip chunks {chunks}"] = dev_snr_db((zf.real, zf.imag), (rt.real, rt.imag))
+        for key in (f"dist_fft chunks {chunks}", f"roundtrip chunks {chunks}"):
+            gate(par_f64[key] >= GATE_DB, f"{key}: {par_f64[key]:.1f} dB")
+        del p, rt
+    # The per-chunk cost of the corner turn's pieces on one rank, where the
+    # all-to-all is the identity. 64 rows: a piece is whole batch rows, with
+    # no copy; optimal_chunks' overhead_s is its least-squares slope. 63
+    # rows: a piece is a slice of every row, copied out and back.
+    for nrows in (FFT_SHAPE[0], FFT_SHAPE[0] - 1):
+        zs = ComplexArray(zf.real[:nrows], zf.imag[:nrows])
+        sweep = {ch: spread(lambda: par.dist_fft(zs, mesh, chunks=ch))[0] for ch in FFT_SWEEP}
+        slope_us = 1e3 * float(np.polyfit(FFT_SWEEP, [sweep[c] for c in FFT_SWEEP], 1)[0])
+        say(f"[21] dist_fft [{nrows}, {FFT_SHAPE[1]}, {FFT_SHAPE[2]}] by chunks on {name} "
+            f"({card}): " + ", ".join(f"{k}: {v:.4f} ms" for k, v in sweep.items())
+            + f"; least-squares slope {slope_us:.1f} us a chunk, step from 1 to 2 "
+            f"{sweep[2] - sweep[1]:.4f} ms")
+        del zs
+    del zf, flat
+    _, moved = launched(dryrun_multichip)
+    say(f"[21] dryrun_multichip() on one rank: ok, launches {moved or 'none'}")
+    union = set().union(*par_launches.values())
+    gate({"fft_rows", "stft_onesided", "osconv_pair", "pfb", "fft_cols"} <= union,
+         f"the parallel paths launched only {sorted(union)}")
+    say(f"[21] parallel/ vs float64 (gates: FIR {FIR_GATE_DB}, spectrogram, PFB, channel power "
+        f"and FFT {GATE_DB}, configs 3-4 {C34_GATE_DB}): "
+        + ", ".join(f"{k} {v:.1f} dB" for k, v in par_f64.items()))
+    say(f"[21] kernels launched on the parallel paths: {sorted(union)}")
+
+    # 22. utils/ on the card: the device idle share through profiling.trace,
+    # a BenchContext section, a checkpoint of a carry on the card, and
+    # sanitizer_mode (NaN checks on, every kernel still launching).
+    from pragma_dsp_tpu_torch.ops import pfb_channelize_step, pfb_stream_init
+    from pragma_dsp_tpu_torch.utils import (BenchContext, device_idle_share, restore_state,
+                                            sanitizer_mode, save_state)
+    from pragma_dsp_tpu_torch.utils import profiling
+
+    x_main = k1[MAIN]["x"]
+    flag_step, _ = entry()
+    trace_root = tempfile.mkdtemp(prefix="chip_smoke_traces_")
+    for key, fn in (("spectrum()", lambda: spectrum(x_main, sample_rate=SR, window="hann")),
+                    ("flagship step", lambda: flag_step(x_main))):
+        label = f"{key} {list(MAIN)}"
+        fn()
+        torch.cuda.synchronize()
+        with profiling.trace(os.path.join(trace_root, label.split()[0].strip("()"))) as log_dir:
+            for _ in range(IDLE_CALLS):
+                fn()
+        with open(os.path.join(log_dir, profiling.TRACE_FILE)) as f:
+            events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+        kern = {}
+        for e in events:
+            if e.get("cat") == "kernel":
+                kern[e["name"][:48]] = kern.get(e["name"][:48], 0.0) + float(e["dur"])
+        gate(bool(kern), f"{label}: the profiler recorded no kernel on the card")
+        share = device_idle_share(log_dir)
+        top = sorted(kern.items(), key=lambda kv: -kv[1])[:4]
+        kern_ms = sum(kern.values()) / 1e3 / IDLE_CALLS
+        say(f"[22] {label}, {IDLE_CALLS} calls traced on {name} ({card}): device idle share "
+            f"{share:.4f} traced; untraced, 1 - its kernels' {kern_ms:.4f} ms over phase 6's "
+            f"pipelined {path_ms[key]:.4f} ms a call = {1 - kern_ms / path_ms[key]:.4f}; "
+            f"{sum(e.get('name') == 'cudaStreamSynchronize' for e in events) / IDLE_CALLS:g} "
+            f"stream synchronisations a call; kernel time {kern_ms:.4f} ms a call in "
+            f"{sum(1 for e in events if e.get('cat') == 'kernel') // IDLE_CALLS} kernels; top: "
+            + ", ".join(f"{k} {v / 1e3 / IDLE_CALLS:.4f} ms" for k, v in top))
+    ctx = BenchContext(warmup=3, iters=20)
+    ctx.time(f"spectrum() {list(MAIN)}", lambda: spectrum(x_main, sample_rate=SR, window="hann"),
+             samples_per_call=MAIN[0] * MAIN[1],
+             hbm_bytes_per_call=4 * MAIN[0] * MAIN[1] + 8 * MAIN[0] * (MAIN[1] // 2 + 1))
+    ctx.time(f"fir_filter {FIR_TAPS} taps [{C2_CHANNELS}, {C2_LEN}]",
+             lambda: fir_filter(xw, fir_taps), samples_per_call=samples,
+             hbm_bytes_per_call=8 * samples)
+    for line in ctx.report().splitlines():
+        say(f"[22] BenchContext: {line}")
+    gate(all(r.device == name and np.isfinite(r.checksum) for r in ctx.results),
+         f"BenchContext: {[(r.device, r.checksum) for r in ctx.results]}")
+    st = pfb_stream_init(C5_CHANNELS, C5_TPB, (2,), device=dev)
+    chunks_iq = [ComplexArray(torch.randn((2, 64 * C5_CHANNELS), generator=gen, device=dev),
+                              torch.randn((2, 64 * C5_CHANNELS), generator=gen, device=dev))
+                 for _ in range(2)]
+    st, _ = pfb_channelize_step(st, chunks_iq[0], C5_CHANNELS)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = save_state(os.path.join(tmp, "pfb_state"), st)
+        back = restore_state(path, pfb_stream_init(C5_CHANNELS, C5_TPB, (2,), device=dev))
+    gate(all(b.is_cuda and torch.equal(a, b) for a, b in zip(st, back)),
+         "restore_state of a PfbState on the card differs")
+    _, ya = pfb_channelize_step(st, chunks_iq[1], C5_CHANNELS)
+    _, yb = pfb_channelize_step(back, chunks_iq[1], C5_CHANNELS)
+    gate(torch.equal(ya.real, yb.real) and torch.equal(ya.imag, yb.imag),
+         "the stream resumed from a checkpoint differs")
+    say(f"[22] save_state/restore_state of a PfbState on {name}: equal on the card, and the "
+        "resumed stream equal")
+    rng = np.random.default_rng(SEED)
+    n = 1024
+    xs_ = cuda(rng.standard_normal((8, n)).astype(np.float32))
+    zr, zi = (cuda(rng.standard_normal((8, n)).astype(np.float32)) for _ in range(2))
+    sig = cuda(rng.standard_normal((2, 8 * n)).astype(np.float32))
+    blocks = cuda(rng.standard_normal((6, n_fir)).astype(np.float32))
+    pfbx = ComplexArray(cuda(rng.standard_normal((2, 64, C5_CHANNELS)).astype(np.float32)),
+                        cuda(rng.standard_normal((2, 64, C5_CHANNELS)).astype(np.float32)))
+    cr, ci = (cuda(rng.standard_normal((2, n, 256)).astype(np.float32)) for _ in range(2))
+    fold_s = tuple(cuda(g[:, :256]) for g in _interstage_grids(n, 1024, -1.0))
+    calls = (
+        ("spectrum_onesided", lambda: fft_cuda.spectrum_amp_phase_cuda(xs_, n, "hann")),
+        ("fft_rows", lambda: fft_cuda.fft_rows_cuda(zr, zi)),
+        ("spectrum_twosided", lambda: fft_cuda.spectrum_amplitude_cuda(xs_, n, "hann", "two")),
+        ("stft_onesided", lambda: fft_cuda.framed_spectrum_amp_phase_cuda(sig, n, 256, "hann")),
+        ("osconv", lambda: conv_cuda.circular_convolve_cuda(blocks[:1], hs_fir, n_fir)),
+        ("osconv_pair", lambda: conv_cuda.circular_convolve_cuda(blocks, hs_fir, n_fir)),
+        ("pfb", lambda: pfb_cuda.pfb_channelize_frames_cuda(pfbx, taps64, C5_CHANNELS)),
+        ("fft_cols", lambda: fft_cuda.fft_cols_cuda(cr, ci, fold=fold_s)))
+
+    for kname, wrapper in calls:
+        outside, moved = launched(wrapper)
+        gate(moved == {kname: 1}, f"outside sanitizer_mode {kname}'s wrapper launched {moved}")
+        with sanitizer_mode():
+            inside, moved = launched(wrapper)
+        gate(moved == {kname: 1}, f"inside sanitizer_mode {kname}'s wrapper launched {moved}")
+        same = all(torch.equal(a, b) for a, b in zip(planes(inside), planes(outside)))
+        gate(same, f"sanitizer_mode: {kname}'s kernel gave another result inside it")
+    with sanitizer_mode():
+        try:
+            torch.log(-xs_.abs() - 1.0)
+            caught = False
+        except FloatingPointError:
+            caught = True
+    gate(caught, "sanitizer_mode let a NaN through")
+    say(f"[22] sanitizer_mode on {name}: each of the {len(calls)} kernels launched once inside "
+        "it, as outside, with a torch.equal result; a NaN from a torch operation raised "
+        "FloatingPointError")
+    shutil.rmtree(trace_root, ignore_errors=True)
+    tdist.destroy_process_group()
 
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

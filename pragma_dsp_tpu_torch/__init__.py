@@ -2,7 +2,8 @@
 
 The JAX package ``pragma_dsp_tpu`` stays the reference; this package
 mirrors its subpackages (``core``, ``math``, ``fluent``, ``xform``,
-``ops``, ``public``, ``stream``, ``models``) on PyTorch tensors, with every TPU kernel
+``ops``, ``public``, ``stream``, ``models``, ``parallel``, ``utils``) on
+PyTorch tensors, with every TPU kernel
 rewritten by hand in CUDA for the H100 (``csrc/``). It exports only what
 is ported (see PORT.md).
 
@@ -11,6 +12,8 @@ is ported (see PORT.md).
 * expert    — ``pragma_dsp_tpu_torch.core``
 * streaming — ``pragma_dsp_tpu_torch.stream``
 * models    — ``pragma_dsp_tpu_torch.models`` (the WBFM and AM receivers)
+* multi-card — ``pragma_dsp_tpu_torch.parallel`` (``torch.distributed``,
+  one process per card)
 
 Host input (numpy arrays, lists, ``device=None``) goes to
 :func:`default_device`, the current CUDA device; a tensor stays where it

@@ -647,3 +647,114 @@ def test_receivers_on_cuda(dev):
     got_am = am(za.astype(np.complex64)).cpu().numpy()
     assert got_am.shape == ref_am.shape and _snr(ref_am, got_am) >= 100.0
     assert dict(fft_cuda.LAUNCHES) == before
+
+
+# ── parallel/ in a 1-rank NCCL group ─────────────────────────────────
+
+@pytest.fixture(scope="module")
+def one_rank_mesh():
+    """A 1-rank NCCL group on a free local port and its 1-D mesh."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs these kernels there")
+    import socket
+
+    import torch.distributed as tdist
+
+    from pragma_dsp_tpu_torch import parallel as par
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    par.init_multihost(f"127.0.0.1:{port}", 1, 0, timeout_s=120)
+    yield par.data_mesh()
+    tdist.destroy_process_group()
+
+
+def test_barrier_on_one_rank(one_rank_mesh):
+    from pragma_dsp_tpu_torch import parallel as par
+
+    par.barrier(timeout_s=30)
+    par.barrier()
+    h = par.health_check()
+    assert h["platform"] == "gpu" and h["process_count"] == 1 and not par.is_multihost()
+    assert h["devices"][0]["kind"] == torch.cuda.get_device_name()
+    assert 0 < h["devices"][0]["hbm_in_use"] <= h["devices"][0]["hbm_limit"]
+
+
+def test_sharded_fir_filter_on_cuda(one_rank_mesh):
+    """K2 + K5b through fir_filter on the halo buffer: >= 110 dB against
+    float64 lfilter, >= 125 dB against the direct filter."""
+    from scipy.signal import lfilter
+
+    from pragma_dsp_tpu_torch.ops.polyphase import design_lowpass
+    from pragma_dsp_tpu_torch.parallel import sharded_fir_filter
+
+    x = np.random.default_rng(5).standard_normal((8, 40000)).astype(np.float32)
+    taps = design_lowpass(127, 0.2).astype(np.float32)
+    xd = torch.from_numpy(x).cuda()
+    before = dict(fft_cuda.LAUNCHES)
+    y = sharded_fir_filter(xd, taps, one_rank_mesh)
+    assert fft_cuda.LAUNCHES["osconv_pair"] == before["osconv_pair"] + 1
+    assert fft_cuda.LAUNCHES["fft_rows"] == before["fft_rows"] + 1
+    assert y.is_cuda and y.shape == xd.shape
+    ref = lfilter(taps.astype(np.float64), 1.0, x.astype(np.float64), axis=-1)
+    assert _snr(ref, y.cpu().numpy()) >= 110.0
+    assert _snr(fir_filter(xd, taps).cpu().numpy(), y.cpu().numpy()) >= 125.0
+
+
+@pytest.mark.parametrize("turn", [True, False])
+def test_sharded_pfb_channelize_on_cuda(one_rank_mesh, turn):
+    """K6 on the halo buffer, once: equal to the direct channelizer."""
+    from pragma_dsp_tpu_torch.parallel import sharded_pfb_channelize
+
+    rng = np.random.default_rng(6)
+    z = ComplexArray(torch.from_numpy(rng.standard_normal(256 * 640).astype(np.float32)).cuda(),
+                     torch.from_numpy(rng.standard_normal(256 * 640).astype(np.float32)).cuda())
+    before = fft_cuda.LAUNCHES["pfb"]
+    y = sharded_pfb_channelize(z, 256, mesh=one_rank_mesh, channels_sharded_out=turn)
+    assert fft_cuda.LAUNCHES["pfb"] == before + 1
+    ref = pfb_channelize(z, 256)
+    assert torch.equal(y.real, ref.real) and torch.equal(y.imag, ref.imag)
+
+
+@pytest.mark.parametrize("chunks", [1, 4])
+def test_dist_fft_roundtrip_on_cuda(one_rank_mesh, chunks):
+    """K7 with the folded twiddle, then K2 (chunks launches): the permuted
+    spectrum >= 105 dB against numpy, the roundtrip >= 105 dB."""
+    from pragma_dsp_tpu_torch.parallel import dist_fft, dist_ifft, permuted_to_natural_host
+
+    rng = np.random.default_rng(7)
+    z = rng.standard_normal((2, 512, 512)) + 1j * rng.standard_normal((2, 512, 512))
+    zc = ComplexArray(torch.from_numpy(z.real.astype(np.float32)).cuda(),
+                      torch.from_numpy(z.imag.astype(np.float32)).cuda())
+    before = dict(fft_cuda.LAUNCHES)
+    p = dist_fft(zc, one_rank_mesh, chunks=chunks)
+    assert fft_cuda.LAUNCHES["fft_cols"] == before["fft_cols"] + 1
+    assert fft_cuda.LAUNCHES["fft_rows"] == before["fft_rows"] + chunks
+    zf = zc.real.double().cpu().numpy() + 1j * zc.imag.double().cpu().numpy()
+    ref = np.fft.fft(zf.reshape(2, -1), axis=-1)
+    assert _snr(np.stack([ref.real, ref.imag]),
+                np.stack([permuted_to_natural_host(p).real,
+                          permuted_to_natural_host(p).imag])) >= 105.0
+    rt = dist_ifft(p, one_rank_mesh, chunks=chunks)
+    assert rt.real.is_cuda
+    assert _snr(np.stack([zf.real, zf.imag]),
+                np.stack([rt.real.cpu().numpy(), rt.imag.cpu().numpy()])) >= 105.0
+
+
+def test_sanitizer_mode_leaves_the_kernels_launching_on_cuda(dev):
+    """Inside sanitizer_mode a wrapper launches its kernel as outside, with
+    the same result; a NaN from a torch operation raises there."""
+    from pragma_dsp_tpu_torch.utils import sanitizer_mode
+
+    rng = np.random.default_rng(8)
+    re, im = (torch.from_numpy(rng.standard_normal((64, 1024)).astype(np.float32)).to(dev)
+              for _ in range(2))
+    outside = fft_cuda.fft_rows_cuda(re, im)
+    before = fft_cuda.LAUNCHES["fft_rows"]
+    with sanitizer_mode():
+        inside = fft_cuda.fft_rows_cuda(re, im)
+        with pytest.raises(FloatingPointError):
+            torch.log(-re.abs() - 1.0)
+    assert fft_cuda.LAUNCHES["fft_rows"] == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(inside, outside))
