@@ -84,8 +84,13 @@ Phases (one line each; any failed gate exits non-zero):
      stream_step over 50 chunks), AmReceiver over [64, 960000], each
      >= 100 dB against an independent float64 scipy/numpy chain;
      de-emphasis of 2^22 float32 samples >= 120 dB against float64
-     lfilter; numpy input lands on the card; times of the chain and its
-     stages; the launch counters of K1-K7 stay at 0 through phases 19-20.
+     lfilter; numpy input lands on the card; one NaN spoils iir_one_pole
+     (40000 samples, bad at 30000) from its 128-sample block on and no
+     earlier (torch.equal to the clean run before it), and FmReceiver's
+     audio (NaN at IQ sample 2,000,000 of row 0) only from 256 samples
+     before its audio time (torch.equal before, and on every other row);
+     times of the chain and its stages; the launch counters of K1-K7 stay
+     at 0 through phases 19-20.
  21. parallel/ on the card, in a 1-rank NCCL group (init_multihost on a free
      local port, barrier, health_check): sharded_fir_filter over phase 12's
      [128, 480000], sharded_spectrogram over [128, 479232] (468 hops: a
@@ -196,6 +201,9 @@ C4_CHUNKS = 50           # stream_step chunks of 48000 IQ samples
 C4_AM_LEN = 960000       # 1 s of 960 ksps AM IQ on each of the 64 rows
 DEEMPH_LEN = 1 << 22     # tests/test_fm_receiver.py:96-120's audit length
 DEEMPH_GATE_DB = 120.0   # that audit measured 131 dB on the CPU
+IIR_BAD_LEN, IIR_BAD_AT = 40000, 30000   # phase 20: block 234, the carries' 2nd group
+RX_BAD_AT = 2_000_000    # phase 20: IF sample 200000, IIR block 1562 of 1875
+RX_BAD_MARGIN = 256      # audio samples before the bad one that must stay equal
 SPREAD_RUNS = 7          # windows of phases 19-20's times (median and spread)
 SPEC_HOPS = 468          # phase 21's spectrogram block, 479232 samples: the
                          # block must be a multiple of hop, 480000 is 468.75 hops
@@ -1697,7 +1705,7 @@ def main() -> int:
 
     from pragma_dsp_tpu_torch.models import AmReceiver, FmReceiver, wbfm_demod
     from pragma_dsp_tpu_torch.ops import (decimate, deemphasis, fm_discriminate,
-                                          interpolate, resample_cascade_step,
+                                          iir_one_pole, interpolate, resample_cascade_step,
                                           resample_cascade_stream_init, resample_poly,
                                           resample_poly_cascade, resampler_taps, upfirdn,
                                           upfirdn_step, upfirdn_stream_init)
@@ -1872,6 +1880,33 @@ def main() -> int:
         + ", ".join(f"{k} {v:.1f} dB" for k, v in c4.items())
         + f"; deemphasis of 2^22 float32 samples vs float64 lfilter {deemph_db:.1f} dB "
         f"(gate >= {DEEMPH_GATE_DB}); results on the card")
+    # One bad sample spoils the IIR from its own 128-sample block on and
+    # no earlier: the block-end carries are scanned causally.
+    xr = torch.randn(IIR_BAD_LEN, generator=gen, device=dev)
+    yr = iir_one_pole(xr, alpha)
+    xr[IIR_BAD_AT] = float("nan")
+    yb = iir_one_pole(xr, alpha)
+    blk = IIR_BAD_AT // 128 * 128
+    gate(torch.equal(yb[:blk], yr[:blk]) and not bool(torch.isfinite(yb[blk:]).any()),
+         f"iir_one_pole, NaN at {IIR_BAD_AT}: outputs before its block differ from the "
+         f"clean run, or one from its block on is finite")
+    bad_re = iq4.real.clone()
+    bad_re[0, RX_BAD_AT] = float("nan")
+    yb4 = rx(ComplexArray(bad_re, iq4.imag))
+    del bad_re
+    at = RX_BAD_AT * y4.shape[-1] // n4                  # the bad sample's audio time
+    fin = torch.isfinite(yb4[0])
+    first = int((~fin).nonzero()[0]) if not bool(fin.all()) else -1
+    gate(torch.equal(yb4[1:], y4[1:]) and torch.equal(yb4[0, :at - RX_BAD_MARGIN],
+                                                      y4[0, :at - RX_BAD_MARGIN])
+         and first >= 0, f"FmReceiver, NaN at IQ sample {RX_BAD_AT} of row 0: audio differs "
+         f"before sample {at - RX_BAD_MARGIN} or nothing went non-finite (first at {first})")
+    say(f"[20] one NaN: iir_one_pole over {IIR_BAD_LEN} samples, bad at {IIR_BAD_AT}, equal "
+        f"to the clean run before {blk} and non-finite from there; FmReceiver, bad IQ "
+        f"sample {RX_BAD_AT} of row 0 (audio time {at}): first non-finite audio sample "
+        f"{first} ({at - first} before), the rest of row 0 before {at - RX_BAD_MARGIN} and "
+        f"rows 1-{C4_STATIONS - 1} equal to the clean run")
+    del yb4, xr, yr, yb
     out4 = 4 * C4_STATIONS * y4.shape[-1]
     chan = rx._channel(iq4)
     aif = fm_discriminate(chan, sample_rate=240e3, deviation=75e3)

@@ -4,10 +4,12 @@ Counterpart of ``pragma_dsp_tpu/ops/demod.py``. Every stage is a batched
 tensor op. The one recurrence, the de-emphasis IIR, runs blocked: blocks
 of 128 samples through a constant lower-triangular matrix (numpy float64,
 a full-float32 product on CUDA), then the block-end carries, which obey
-the same one-pole recurrence with pole alpha^128 and unit gain, through
-the same blocked form again, until one block is left. PyTorch has no
-associative scan outside ``torch.compile``; this is two or three products
-where the JAX package scans.
+the same one-pole recurrence with pole alpha^128 and unit gain, through a
+causal scan: the odd/even tree of ``jax.lax.associative_scan`` that the
+JAX package runs, done in place on strided views in two fused
+multiply-adds a level. A carry depends only on the block ends before it,
+so a non-finite sample spoils its own block from its start and every
+sample after it, and no earlier block.
 """
 
 from __future__ import annotations
@@ -78,21 +80,33 @@ def _block_tables(pole: float, gain: float, block: int, dtype: torch.dtype,
             torch.from_numpy(pole ** (i + 1.0)).to(device, dtype))
 
 
+def _scan_carries(c: torch.Tensor, pole: float) -> None:
+    """c[k] <- pole * c[k-1] + c[k] along the last axis, in place, for
+    every k in turn: ``jax.lax.associative_scan``'s tree (pairs combined,
+    the pairs' scan with pole^2, then the even places), so a carry reads
+    only the ones before it and a non-finite carry turns into NaN or
+    stays +-inf where the JAX package's does. Each level's pole is
+    squared in float64 and rounded once to ``c``'s dtype."""
+    if c.shape[-1] < 2:
+        return
+    c[..., 1::2].add_(c[..., 0:-1:2], alpha=pole)
+    _scan_carries(c[..., 1::2], pole * pole)
+    c[..., 2::2].add_(c[..., 1:-1:2], alpha=pole)
+
+
 def _one_pole(x: torch.Tensor, pole: float, gain: float, y0: torch.Tensor,
               block: int = IIR_BLOCK) -> torch.Tensor:
     """y[n] = gain * x[n] + pole * y[n-1] along the last axis, y[-1] = y0
     ([..., 1]), blocked: y = local + carry * pole^(i+1), the carries
-    c_k = pole^B c_{k-1} + end_{k-1} (c_0 = y0) by this same function."""
+    c_k = pole^B c_{k-1} + end_{k-1} (c_0 = y0) by :func:`_scan_carries`."""
     n = x.shape[-1]
     nb = -(-n // block)
     blocks = torch.nn.functional.pad(x, (0, nb * block - n)).unflatten(-1, (nb, block))
     mat, apow = _block_tables(pole, gain, block, x.dtype, x.device)
     with full_float32(x):
         local = torch.matmul(blocks, mat)
-    carry = y0
-    if nb > 1:
-        later = _one_pole(local[..., :-1, -1], pole ** block, 1.0, y0, block)
-        carry = torch.cat([y0, later], dim=-1)
+    carry = torch.cat([y0, local[..., :-1, -1]], dim=-1)
+    _scan_carries(carry, pole ** block)
     y = local + carry[..., :, None] * apow
     return y.flatten(-2)[..., :n]
 

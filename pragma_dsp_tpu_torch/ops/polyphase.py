@@ -14,7 +14,11 @@ once per taps, ratio, grouping, dtype and device). The frames are never
 materialised: the padded signal is viewed as rows of ``down * cyc``
 samples, and the product is summed over the few row-shifted views a frame
 spans (``torch.addmm`` on strided views, no copy). The two planes of a
-complex signal share one product. On CUDA the products run in full
+complex signal share one product. Where the grouping (:func:`cycles`)
+does not divide the JAX package's (up = 3, 5, 6, 7, ...), frames of about
+that many cycles tile each of the JAX package's frames instead, one
+product a frame's place in it (:func:`subframes`), so a NaN spreads over
+no output that it does not reach there. On CUDA the products run in full
 float32 (``ops/_tf32.full_float32``), the counterpart of
 ``Precision.HIGHEST``; float64 stays float64.
 
@@ -48,6 +52,8 @@ __all__ = ["upfirdn", "resample_poly", "resample_poly_cascade",
 # frame holds at least this many. Chosen from H100 times
 # (scripts/resample_times.py; PORT.md, "the cycle grouping").
 CYCLE_OUTPUTS = 32
+# The JAX package groups ceil(REF_CYCLE_OUTPUTS / up) cycles a frame.
+REF_CYCLE_OUTPUTS = 128
 
 
 def design_lowpass(num_taps: int, cutoff: float, window: str = "hamming") -> np.ndarray:
@@ -90,6 +96,25 @@ def cycles(up: int) -> int:
     return max(1, -(-CYCLE_OUTPUTS // up))
 
 
+def _jax_cycles(up: int) -> int:
+    """The JAX package's grouping: cycles a frame of its banded product."""
+    return max(1, -(-REF_CYCLE_OUTPUTS // up))
+
+
+def subframes(up: int):
+    """[(first cycle, cycles)] of the frames that tile one frame of the JAX
+    package's grouping, each about :func:`cycles` long: a NaN or inf, which
+    reaches every output of the frames whose input window holds it (times
+    a zero tap), then reaches no output that it does not reach there. One
+    frame where :func:`cycles` divides the JAX grouping."""
+    j = _jax_cycles(up)
+    n = -(-j // cycles(up))
+    if j % cycles(up) == 0:
+        return [(0, cycles(up))]
+    sizes = [j // n + (i < j % n) for i in range(n)]
+    return [(sum(sizes[:i]), c) for i, c in enumerate(sizes)]
+
+
 def band_matrix(hh: np.ndarray, up: int, down: int, cyc: int) -> np.ndarray:
     """The (down*cyc + halo, up*cyc) float64 tap matrix of ``cyc`` cycles:
     output r of a frame is sum_q h[p + up*q] * x[c - q] with
@@ -120,10 +145,10 @@ def band_tensor(hh: np.ndarray, up: int, down: int, dtype: torch.dtype, device,
 
 @functools.lru_cache(maxsize=32)
 def _band_on(taps: bytes, up: int, down: int, dtype: torch.dtype,
-             device: torch.device) -> torch.Tensor:
-    """:func:`band_tensor`, kept for the last few taps, ratios, dtypes and
-    devices: a repeated call uploads nothing. Read-only."""
-    return band_tensor(np.frombuffer(taps, dtype=np.float64), up, down, dtype, device)
+             device: torch.device, cyc: Optional[int] = None) -> torch.Tensor:
+    """:func:`band_tensor`, kept for the last few taps, ratios, groupings,
+    dtypes and devices: a repeated call uploads nothing. Read-only."""
+    return band_tensor(np.frombuffer(taps, dtype=np.float64), up, down, dtype, device, cyc)
 
 
 def _upfirdn_conv(x: torch.Tensor, hh: np.ndarray) -> torch.Tensor:
@@ -177,17 +202,60 @@ def _upfirdn_banded(planes, k: int, up: int, down: int, mat: torch.Tensor):
     return [p.reshape(batch + (out_len,)) for p in y.unbind(0)]
 
 
+def _upfirdn_tiled(planes, k: int, up: int, down: int, mats):
+    """upfirdn of real planes [..., L] (one shape) by frames that tile each
+    frame of the JAX package's grouping (J cycles at J*down samples):
+    ``mats`` is [(first cycle, banded matrix of its cycles)]. Frame (s, i)
+    of a row reads xp[s*J*down + o_i*down :][:width_i] of the row padded
+    by the halo: with every plane and batch row laid end to end, the
+    frames of one i are a strided view, rows J*down apart, so each i is one
+    product, written into its columns of the [rows, J*up] output. As in
+    :func:`_upfirdn_banded`, rows that straddle two rows are computed and
+    never read."""
+    length = planes[0].shape[-1]
+    halo = -(-k // up) - 1
+    j = _jax_cycles(up)
+    stride, width = down * j, up * j
+    out_len = -(-((length - 1) * up + k) // down)
+    n_frames = -(-out_len // width)
+    rows_per = max(n_frames + -(-halo // stride), -(-(halo + length) // stride))
+    batch = planes[0].shape[:-1]
+    b = math.prod(batch)
+    n_rows = len(planes) * b * rows_per
+    flat = planes[0].new_empty(n_rows * stride + (1 + -(-halo // stride)) * stride)
+    xp = flat[:n_rows * stride].view(len(planes), b, rows_per * stride)
+    xp[..., :halo].zero_()
+    for i, plane in enumerate(planes):
+        xp[i, :, halo:halo + length] = plane.reshape(b, length)
+    xp[..., halo + length:].zero_()
+    flat[n_rows * stride:].zero_()
+    y = planes[0].new_empty((n_rows, width))
+    with full_float32(planes[0]):
+        for first, mat in mats:
+            frames = flat.as_strided((n_rows, mat.shape[0]), (stride, 1), first * down)
+            torch.mm(frames, mat, out=y[:, first * up:first * up + mat.shape[1]])
+    y = y.as_strided((len(planes), b, out_len), (b * rows_per * width, rows_per * width, 1))
+    return [p.reshape(batch + (out_len,)) for p in y.unbind(0)]
+
+
 def upfirdn_planes(planes, hh: np.ndarray, up: int, down: int,
                    band: Optional[torch.Tensor] = None):
     """upfirdn of real planes of one shape, dtype and device, as one
     product; ``band`` is a prebuilt banded matrix, used where it matches
-    the planes' dtype and device."""
+    the planes' dtype and device. Without one, where :func:`cycles` does
+    not divide the JAX package's grouping, the frames of
+    :func:`subframes` tile the JAX package's."""
     x = planes[0]
     if up == 1 and down == 1:
         return list(_upfirdn_conv(torch.stack(planes), hh).unbind(0))
-    if band is None or band.dtype != x.dtype or band.device != x.device:
-        band = _band_on(hh.tobytes(), up, down, x.dtype, x.device)
-    return _upfirdn_banded(planes, hh.shape[0], up, down, band)
+    if band is not None and band.dtype == x.dtype and band.device == x.device:
+        return _upfirdn_banded(planes, hh.shape[0], up, down, band)
+    tiles = subframes(up)
+    mats = [(first, _band_on(hh.tobytes(), up, down, x.dtype, x.device, cyc))
+            for first, cyc in tiles]
+    if len(tiles) == 1:
+        return _upfirdn_banded(planes, hh.shape[0], up, down, mats[0][1])
+    return _upfirdn_tiled(planes, hh.shape[0], up, down, mats)
 
 
 def _is_complex(x) -> bool:

@@ -8,7 +8,13 @@ JAX package on the same seeded numpy inputs.
   without its mask), AmReceiver, wbfm_demod and am_receive, to 1e-10;
 * float32: the receiver's stream against its batch prefix and the JAX
   float32 batch at tests/test_streaming_scan.py:111's bound (2e-4), and
-  de-emphasis against float64 lfilter;
+  de-emphasis against float64 lfilter, no less precise than the JAX
+  package's at three poles;
+* non-finite input: a NaN or +-inf in the first block, past 16384 samples
+  or in the last block gives the IIR's output the JAX package's
+  non-finite places and +-inf values (float32 and float64, either y0),
+  and the receiver's batch and stream, a bad IQ sample deep in the call,
+  non-finite audio inside the JAX package's;
 * the committed fixture tests/fixtures/dsp/fm_demod.json.gz (>= 130 dB);
 * the same exception type and message for the same bad call;
 * the interop round trip of FmDemodState and WbfmStreamState (nested);
@@ -182,6 +188,55 @@ def test_iir_one_pole_matches_lfilter_and_the_jax_scan():
                                rtol=0, atol=F64_TOL)
 
 
+def _assert_same_non_finite(got, ref, atol, label):
+    """The same non-finite places, the same +-inf there, finite values to
+    ``atol``."""
+    bad = ~np.isfinite(ref)
+    assert np.array_equal(~np.isfinite(got), bad), label
+    inf = np.isinf(ref)
+    assert np.array_equal(got[inf], ref[inf]), label
+    np.testing.assert_allclose(got[~bad], ref[~bad], rtol=0, atol=atol, err_msg=label)
+
+
+@pytest.mark.parametrize("y0", ["number", "tensor"])
+@pytest.mark.parametrize("bad", [np.nan, np.inf, -np.inf], ids=["nan", "pos_inf", "neg_inf"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_iir_one_pole_non_finite_matches_jax(dtype, bad, y0):
+    """One bad sample in the first block, past the carries' first group
+    of 128 blocks, and in the last block: the output is non-finite from
+    the start of the sample's block on, as the JAX package's, and at no
+    earlier sample (a carry reads only the block ends before it)."""
+    x0 = np.random.default_rng(20000).standard_normal((2, 20000)).astype(dtype)
+    alpha = 0.9
+    y0v = 1.5 if y0 == "number" else np.array([[1.5], [-0.25]], dtype)
+    py0 = y0v if y0 == "number" else _t(y0v)
+    jy0 = y0v if y0 == "number" else jnp.asarray(y0v)
+    atol = F64_TOL if dtype == np.float64 else 2e-6 * 4
+    for at in (50, 18000, 19990):
+        x = x0.copy()
+        x[0, at] = bad
+        got = iir_one_pole(_t(x), alpha, y0=py0).numpy()
+        ref = np.asarray(jdemod.iir_one_pole(jnp.asarray(x), alpha, y0=jy0))
+        label = f"{dtype.__name__} {bad} at {at}"
+        _assert_same_non_finite(got, ref, atol, label)
+        assert np.isfinite(got[0, :at // 128 * 128]).all(), label
+        assert not np.isfinite(got[0, at // 128 * 128:]).any(), label
+        assert np.isfinite(got[1]).all(), label
+
+
+@pytest.mark.parametrize("alpha", [0.946, 0.999, 0.99999])
+def test_iir_one_pole_f32_no_less_precise_than_jax(alpha):
+    """float32 against float64 lfilter over 2.4e6 samples: the port's
+    carries (poles squared in float64) read no lower than the JAX
+    package's (squared in float32)."""
+    x = np.random.default_rng(7).standard_normal(2_400_000)
+    ref = sps.lfilter([1 - alpha], [1, -alpha], x)
+    x32 = x.astype(np.float32)
+    got = iir_one_pole(torch.from_numpy(x32), alpha).double().numpy()
+    jgot = np.asarray(jdemod.iir_one_pole(jnp.asarray(x32), alpha)).astype(np.float64)
+    assert snr_db(ref, got) >= snr_db(ref, jgot) > 100.0
+
+
 def test_deemphasis_matches_jax_f64_and_is_lowpass():
     x = np.random.default_rng(31).standard_normal(8192)
     got = deemphasis(_t(x), 48000.0, tau=75e-6).numpy()
@@ -278,6 +333,50 @@ def test_fm_receiver_stream_f32_matches_batch_prefix():
         outs.append(y.numpy())
     got = np.concatenate(outs)
     np.testing.assert_allclose(got, batch[:got.size], rtol=0, atol=RX_F32_TOL)
+
+
+def _bad_iq_row(at, n=384000, bad=np.nan):
+    """The FM test signal in float32, [2, n], with row 0's real part bad
+    at IQ sample ``at``."""
+    z = _fm_iq(n=n)
+    re, im = z.real.astype(np.float32), z.imag.astype(np.float32)
+    re[0, at] = bad
+    return re, im
+
+
+def _assert_non_finite_inside(got, ref, label):
+    """The port's non-finite audio lies inside the JAX package's (the
+    banded products' frames differ, PORT.md), the rest agrees."""
+    assert got.shape == ref.shape, label
+    assert not np.isfinite(got).all(), label
+    assert not (~np.isfinite(got) & np.isfinite(ref)).any(), label
+    fin = np.isfinite(got)
+    np.testing.assert_allclose(got[fin], ref[fin], rtol=0, atol=RX_F32_TOL, err_msg=label)
+
+
+def test_fm_receiver_bad_sample_stays_inside_jax():
+    """A NaN at IQ sample 372000 of row 0 (IF sample 37200, past the
+    carries' second group): the batch audio is non-finite only where
+    the JAX package's is; so is the stream's, in two chunks of 192000
+    (IF sample 18000 of the second chunk). Row 1 stays finite."""
+    re, im = _bad_iq_row(372000)
+    got = FmReceiver(device="cpu")(ComplexArray(_t(re), _t(im))).numpy()
+    ref = np.asarray(jmodels.FmReceiver()(JComplexArray(jnp.asarray(re), jnp.asarray(im))))
+    _assert_non_finite_inside(got, ref, "batch")
+    assert np.isfinite(got[1]).all()
+    # The JAX spread before the bad sample's audio time (7440) is 112 samples.
+    assert np.isfinite(got[0, :7440 - 256]).all()
+    rx, jrx = FmReceiver(device="cpu"), jmodels.FmReceiver()
+    st, jst = rx.stream_init((2,), device="cpu"), jrx.stream_init((2,))
+    for i in range(2):
+        sl = slice(i * 192000, (i + 1) * 192000)
+        st, y = rx.stream_step(st, ComplexArray(_t(re[:, sl]), _t(im[:, sl])))
+        jst, jy = jrx.stream_step(jst, JComplexArray(jnp.asarray(re[:, sl]),
+                                                     jnp.asarray(im[:, sl])))
+        if i == 0:
+            np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=0, atol=RX_F32_TOL)
+        else:
+            _assert_non_finite_inside(y.numpy(), np.asarray(jy), "stream")
 
 
 def test_am_receiver_matches_jax_f64():

@@ -883,6 +883,27 @@ def test_nccl_without_a_card_raises(monkeypatch):
         pp.init_multihost("127.0.0.1:1", 1, 0)
 
 
+def test_sharded_cards_script_on_gloo_ranks():
+    """scripts/sharded_cards.py --small: every entry on the 1-D axis and
+    the joint axis in both orders passes both of its gates on four gloo
+    ranks (the ranks exit non-zero had one loaded JAX)."""
+    script = os.path.join(ROOT, "scripts", "sharded_cards.py")
+    proc = subprocess.run([sys.executable, script, "--small"], capture_output=True, text=True,
+                          timeout=RANK_TIMEOUT_S)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    entries = ("dist_ifft", "dist_fft", "fir_auto", "fir_direct", "spectrogram", "pfb_turn",
+               "pfb_frames_out", "pfbf_turn", "pfbf_frames_out", "channel_power", "upfirdn",
+               "resample_poly", "wbfm")
+    assert out["ok"] and {(r["entry"], r["axis"], r["rank"]) for r in out["rows"]} == {
+        (e, a, r) for e in entries for a in ("x", "host,chip", "chip,host")
+        for r in range(WORLD)}
+    assert all(r["ok"] for r in out["rows"])
+    # ("chip", "host") lists the ranks out of the group's order
+    swapped = {r["rank"]: r["position"] for r in out["rows"] if r["axis"] == "chip,host"}
+    assert swapped == {0: 0, 1: 2, 2: 1, 3: 3}
+
+
 def test_ranks_import_no_jax(ranks):
     """A rank imported this module's top level, ran every case and the dry
     run: no module of JAX or of the JAX package was loaded."""

@@ -122,6 +122,16 @@ def test_grouping_rule():
     assert ppoly.cycles(1) == -(-ppoly.CYCLE_OUTPUTS // 1)
     for up in (1, 2, 3, 7, 147, 300):
         assert up * ppoly.cycles(up) >= min(ppoly.CYCLE_OUTPUTS, up)
+    for up in (1, 2, 3, 4, 5, 6, 7, 9, 31, 32, 147, 300):
+        # The frames tile one frame of the JAX grouping, ceil(128/up) cycles,
+        # so each lies inside one of its frames.
+        tiles = ppoly.subframes(up)
+        assert [f for f, _ in tiles] == [sum(c for _, c in tiles[:i]) for i in range(len(tiles))]
+        assert sum(c for _, c in tiles) == (-(-128 // up) if len(tiles) > 1 else tiles[0][1])
+        assert (-(-128 // up)) % tiles[0][1] == 0 or len(tiles) > 1
+        assert max(c for _, c in tiles) == ppoly.cycles(up)
+    assert ppoly.subframes(3) == [(0, 11), (11, 11), (22, 11), (33, 10)]
+    assert ppoly.subframes(1) == [(0, 32)] and ppoly.subframes(147) == [(0, 1)]
 
 
 # ── float64 parity ───────────────────────────────────────────────────
