@@ -16,10 +16,10 @@ samples, and the product is summed over the few row-shifted views a frame
 spans (``torch.addmm`` on strided views, no copy). The two planes of a
 complex signal share one product. Where the grouping (:func:`cycles`)
 does not divide the JAX package's (up = 3, 5, 6, 7, ...), frames of about
-that many cycles tile each of the JAX package's frames instead, one
-product a frame's place in it (:func:`subframes`), so a NaN spreads over
-no output that it does not reach there. On CUDA the products run in full
-float32 (``ops/_tf32.full_float32``), the counterpart of
+that many cycles tile each of the JAX package's frames instead, each
+place in it its own sum of products (:func:`subframes`), so a NaN spreads
+over no output that it does not reach there. On CUDA the products run in
+full float32 (``ops/_tf32.full_float32``), the counterpart of
 ``Precision.HIGHEST``; float64 stays float64.
 
 Taps are read to the host once (a tensor too): the banded matrix is built
@@ -162,78 +162,54 @@ def _upfirdn_conv(x: torch.Tensor, hh: np.ndarray) -> torch.Tensor:
     return y.reshape(x.shape[:-1] + (y.shape[-1],))
 
 
-def _upfirdn_banded(planes, k: int, up: int, down: int, mat: torch.Tensor):
-    """upfirdn of real planes [..., L] (one shape) by the banded matrix
-    ``mat`` of :func:`band_matrix` (its grouping read off its shape).
+def _upfirdn_banded(planes, k: int, up: int, down: int, tiles):
+    """upfirdn of real planes [..., L] (one shape) by the banded matrices
+    of ``tiles``, [(first cycle, :func:`band_matrix` of its cycles)], which
+    together tile one frame of J cycles (one tile: the frame itself).
 
-    Frame s of a row is xp[s*stride : s*stride + w_frame] of the row padded
-    by the halo on the left and zeros on the right. With the padded rows of
-    every plane and batch row laid end to end as one [B*R, stride] matrix,
-    frame s of row b starts at matrix row b*R + s, and
-    y = sum_t rows[t:] @ mat[t*stride : (t+1)*stride]: each term a product
-    of a strided view, so nothing is copied but the padded signal. The
-    products run over all B*R rows; the last t_rows - 1 frames of each row,
-    which straddle two rows, are computed and never read.
+    Frame s of a row is xp[s*stride : s*stride + J*down + halo] of the row
+    padded by the halo on the left and zeros on the right, stride = J*down;
+    the tile of the cycles from o on reads the frame's w_o samples from
+    o*down on, w_o its matrix's height. With the padded rows of every plane
+    and batch row laid end to end as one [B*R, stride] matrix (from o*down
+    on, one row past the end zero), frame s of row b starts at matrix row
+    b*R + s, and the tile writes its columns of the output as
+    sum_t rows[t:] @ mat[t*stride : (t+1)*stride]: each term a product of
+    a strided view no wider than its row stride, so nothing is copied but
+    the padded signal. The products run over all B*R rows; the last frames
+    of each row, which straddle two rows, are computed and never read.
     """
     length = planes[0].shape[-1]
     halo = -(-k // up) - 1
-    w_frame, upc = mat.shape
-    stride = w_frame - halo
-    out_len = -(-((length - 1) * up + k) // down)
-    n_frames = -(-out_len // upc)
-    t_rows = -(-w_frame // stride)
-    rows_per = n_frames + t_rows
-    batch = planes[0].shape[:-1]
-    b = math.prod(batch)
-    xp = planes[0].new_empty((len(planes), b, rows_per * stride))
-    xp[..., :halo].zero_()
-    for i, plane in enumerate(planes):
-        xp[i, :, halo:halo + length] = plane.reshape(b, length)
-    xp[..., halo + length:].zero_()
-    rows = xp.view(-1, stride)
-    m = rows.shape[0] - t_rows + 1
-    with full_float32(mat):
-        y = torch.matmul(rows[:m], mat[:stride])
-        for t in range(1, t_rows):
-            wt = min(stride, w_frame - t * stride)
-            y.addmm_(rows[t:t + m, :wt], mat[t * stride:t * stride + wt])
-    # Row b's outputs are the first out_len of its rows_per * upc.
-    y = y.as_strided((len(planes), b, out_len), (b * rows_per * upc, rows_per * upc, 1))
-    return [p.reshape(batch + (out_len,)) for p in y.unbind(0)]
-
-
-def _upfirdn_tiled(planes, k: int, up: int, down: int, mats):
-    """upfirdn of real planes [..., L] (one shape) by frames that tile each
-    frame of the JAX package's grouping (J cycles at J*down samples):
-    ``mats`` is [(first cycle, banded matrix of its cycles)]. Frame (s, i)
-    of a row reads xp[s*J*down + o_i*down :][:width_i] of the row padded
-    by the halo: with every plane and batch row laid end to end, the
-    frames of one i are a strided view, rows J*down apart, so each i is one
-    product, written into its columns of the [rows, J*up] output. As in
-    :func:`_upfirdn_banded`, rows that straddle two rows are computed and
-    never read."""
-    length = planes[0].shape[-1]
-    halo = -(-k // up) - 1
-    j = _jax_cycles(up)
+    last, last_mat = tiles[-1]
+    j = last + (last_mat.shape[0] - halo) // down
     stride, width = down * j, up * j
     out_len = -(-((length - 1) * up + k) // down)
     n_frames = -(-out_len // width)
-    rows_per = max(n_frames + -(-halo // stride), -(-(halo + length) // stride))
+    spans = [-(-mat.shape[0] // stride) for _, mat in tiles]
+    rows_per = max(n_frames + max(spans), -(-(halo + length) // stride))
     batch = planes[0].shape[:-1]
     b = math.prod(batch)
     n_rows = len(planes) * b * rows_per
-    flat = planes[0].new_empty(n_rows * stride + (1 + -(-halo // stride)) * stride)
+    flat = planes[0].new_empty((n_rows + 1) * stride)
     xp = flat[:n_rows * stride].view(len(planes), b, rows_per * stride)
     xp[..., :halo].zero_()
     for i, plane in enumerate(planes):
         xp[i, :, halo:halo + length] = plane.reshape(b, length)
     xp[..., halo + length:].zero_()
     flat[n_rows * stride:].zero_()
-    y = planes[0].new_empty((n_rows, width))
+    m = n_rows - max(spans) + 1
+    y = planes[0].new_empty((m, width))
     with full_float32(planes[0]):
-        for first, mat in mats:
-            frames = flat.as_strided((n_rows, mat.shape[0]), (stride, 1), first * down)
-            torch.mm(frames, mat, out=y[:, first * up:first * up + mat.shape[1]])
+        for (first, mat), span in zip(tiles, spans):
+            rows = flat.as_strided((n_rows, stride), (stride, 1), first * down)
+            w_tile, cols = mat.shape
+            out = y[:, first * up:first * up + cols]
+            torch.mm(rows[:m, :min(stride, w_tile)], mat[:stride], out=out)
+            for t in range(1, span):
+                wt = min(stride, w_tile - t * stride)
+                out.addmm_(rows[t:t + m, :wt], mat[t * stride:t * stride + wt])
+    # Row b's outputs are the first out_len of its rows_per * width.
     y = y.as_strided((len(planes), b, out_len), (b * rows_per * width, rows_per * width, 1))
     return [p.reshape(batch + (out_len,)) for p in y.unbind(0)]
 
@@ -242,20 +218,17 @@ def upfirdn_planes(planes, hh: np.ndarray, up: int, down: int,
                    band: Optional[torch.Tensor] = None):
     """upfirdn of real planes of one shape, dtype and device, as one
     product; ``band`` is a prebuilt banded matrix, used where it matches
-    the planes' dtype and device. Without one, where :func:`cycles` does
-    not divide the JAX package's grouping, the frames of
-    :func:`subframes` tile the JAX package's."""
+    the planes' dtype and device. Without one, the frames of
+    :func:`subframes` tile the JAX package's grouping."""
     x = planes[0]
     if up == 1 and down == 1:
         return list(_upfirdn_conv(torch.stack(planes), hh).unbind(0))
     if band is not None and band.dtype == x.dtype and band.device == x.device:
-        return _upfirdn_banded(planes, hh.shape[0], up, down, band)
-    tiles = subframes(up)
-    mats = [(first, _band_on(hh.tobytes(), up, down, x.dtype, x.device, cyc))
-            for first, cyc in tiles]
-    if len(tiles) == 1:
-        return _upfirdn_banded(planes, hh.shape[0], up, down, mats[0][1])
-    return _upfirdn_tiled(planes, hh.shape[0], up, down, mats)
+        tiles = [(0, band)]
+    else:
+        tiles = [(first, _band_on(hh.tobytes(), up, down, x.dtype, x.device, cyc))
+                 for first, cyc in subframes(up)]
+    return _upfirdn_banded(planes, hh.shape[0], up, down, tiles)
 
 
 def _is_complex(x) -> bool:

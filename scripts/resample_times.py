@@ -2,6 +2,7 @@
 """Time the polyphase resampler and the receiver chains on one CUDA card.
 
     python3 scripts/resample_times.py [--runs 7] [--outputs 1 8 16 32 64 128 256]
+        [--parts stages chains tiled] [--root DIR]
 
 For each stage shape of configs 3 and 4 (the 48 kHz -> 44.1 kHz resampler
 over [128, 480000]; the WBFM and AM channel and audio stages at
@@ -10,9 +11,15 @@ banded product at every cycle grouping (cycles grouped until a frame holds
 at least N outputs, for each N of ``--outputs``) and, for pure decimation,
 a strided ``conv1d``; each variant is checked equal to the default
 grouping. Then the stages of ``FmReceiver`` and ``AmReceiver`` one by one,
-and ``resample_poly``. CUDA events, median and spread (min..max) over
-``--runs`` windows; peak MB above the inputs; the bound is the bytes each
-call must move over 3.35 TB/s. Imports nothing of JAX.
+and ``resample_poly``. Then the ratios whose frames tile the JAX
+package's grouping (:func:`subframes` of more than one frame where the
+checkout has it): ``interpolate`` by 3, 5, 6 and 7 and ``upfirdn`` 3/2
+with 127 taps, and the (3,4)(7,8)(7,5) cascade, over [128, 480000].
+CUDA events, median and spread (min..max) over ``--runs`` windows; peak
+MB above the inputs; the bound is the bytes each call must move over
+3.35 TB/s. ``--parts`` picks the sections; ``--root`` imports the
+package of another checkout, so that a parent and a change go in turns in
+one call. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -24,12 +31,21 @@ import sys
 
 import numpy as np
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 HBM_BYTES_PER_S = 3.35e12
+PARTS = ("stages", "chains", "tiled")
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--runs", type=int, default=7)
+    ap.add_argument("--outputs", type=int, nargs="+", default=[1, 8, 16, 32, 64, 128, 256])
+    ap.add_argument("--parts", nargs="+", choices=PARTS, default=list(PARTS))
+    ap.add_argument("--root", default=ROOT, help="the checkout whose package is timed")
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.root))
+
     import torch
 
     if not torch.cuda.is_available():
@@ -40,15 +56,11 @@ def main() -> int:
     from pragma_dsp_tpu_torch.ops._tf32 import full_float32
     from pragma_dsp_tpu_torch.ops.demod import am_demod, deemphasis, fm_discriminate
 
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--runs", type=int, default=7)
-    ap.add_argument("--outputs", type=int, nargs="+", default=[1, 8, 16, 32, 64, 128, 256])
-    args = ap.parse_args()
-
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60, check=True).stdout.strip().splitlines()[0]
-    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    print(f"root {os.path.abspath(args.root)}; card: {card}; torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}", flush=True)
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(1337)
 
@@ -104,7 +116,7 @@ def main() -> int:
          am._chan_taps, 1, 10),
         ("AM audio, 1/2, 127 taps, [64, 96000]", (64, 96000), 1, am._audio_taps, 1, 2),
     )
-    for label, shape, n_planes, hh, up, down in stages:
+    for label, shape, n_planes, hh, up, down in stages if "stages" in args.parts else ():
         planes = [torch.randn(shape, generator=gen, device=dev) for _ in range(n_planes)]
         ref = pp.upfirdn_planes(planes, hh, up, down)
         out_bytes = 4 * n_planes * shape[0] * ref[0].shape[-1]
@@ -129,6 +141,17 @@ def main() -> int:
             report(f"  strided conv1d (max|diff| vs default {err:.2e})",
                    lambda: strided_conv(planes, hh, down), nbytes)
         del planes, ref
+
+    if "chains" in args.parts:
+        chains(report, gen, dev, fm, am, pp, am_demod, deemphasis, fm_discriminate)
+    if "tiled" in args.parts:
+        tiled(report, gen, dev, pp)
+    return 0
+
+
+def chains(report, gen, dev, fm, am, pp, am_demod, deemphasis, fm_discriminate):
+    """The receivers stage by stage, and config 3's resampler whole."""
+    import torch
 
     print("== the chains, stage by stage (default grouping)", flush=True)
     iq = [torch.randn((64, 2400000), generator=gen, device=dev) for _ in range(2)]
@@ -164,7 +187,23 @@ def main() -> int:
     report("resample_poly 147/160 [128, 480000] (config 3), whole",
            lambda: pp.resample_poly(x, 147, 160),
            4 * (x.numel() + pp.resample_poly(x, 147, 160).numel()))
-    return 0
+
+
+def tiled(report, gen, dev, pp):
+    """The ratios whose frames tile the JAX package's grouping, whole
+    calls over [128, 480000], with the frames each call uses."""
+    import torch
+
+    x = torch.randn((128, 480000), generator=gen, device=dev)
+    print("== tiled groupings, [128, 480000], 127 taps", flush=True)
+    calls = [(f"interpolate by {f}", f, lambda f=f: pp.interpolate(x, f)) for f in (3, 5, 6, 7)]
+    calls.append(("upfirdn 3/2", 3, lambda: pp.upfirdn(x, pp.resampler_taps(3, 2), 3, 2)))
+    calls.append(("resample_poly_cascade (3,4)(7,8)(7,5)", None,
+                  lambda: pp.resample_poly_cascade(x, [(3, 4), (7, 8), (7, 5)])))
+    for label, up, fn in calls:
+        frames = (pp.subframes(up) if up and hasattr(pp, "subframes")
+                  else pp.cycles(up) if up else "per stage")
+        report(f"{label} (frames {frames})", fn, 4 * (x.numel() + fn().numel()))
 
 
 if __name__ == "__main__":

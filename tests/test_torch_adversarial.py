@@ -21,10 +21,13 @@ the input in chunks and compared chunk by chunk. One case differs by
 design: a NaN reaches every output of the banded product's frames that
 hold it (NaN times a zero tap), and the port's frames of upfirdn at 3/2
 hold 33 outputs where the JAX package's hold 129 (the grouping is chosen
-from H100 times), tiling the JAX package's frames. There, and in every
-entry that runs a banded product, the port's NaNs must lie inside the JAX
-package's and every other number must agree. istft of int input is held to the JAX istft of the same signal
-in float32, the dtype the port coerces int input to (PORT.md): its edge
+from H100 times), tiling the JAX package's frames. There, and in the
+other entries whose frames are smaller than the JAX package's at this
+input (decimate, interpolate, the cascade and the two resampling steps),
+the port's NaNs must lie inside the JAX package's and every other number
+must agree; every other entry, banded or not, gives the same NaNs.
+istft of int input is held to the JAX istft of the same signal in
+float32, the dtype the port coerces int input to (PORT.md): its edge
 samples divide by a window energy near 0, which magnifies the float32
 rounding past the sweep's tolerance.
 
@@ -223,10 +226,10 @@ DSP_ENTRIES = ("fir_filter", "pfb_channelize", "upfirdn", "resample_poly",
 DSP_N = 256            # signals of 3*256 samples ("short": 128)
 NAN_FRAMES = ("upfirdn", "nan")
 INT_AS_F32 = ("istft", "int")
-# Entries that run a banded product: a NaN's spread follows the frames.
-BANDED = {"upfirdn", "resample_poly", "wbfm_demod", "am_receive", "decimate",
-          "interpolate", "resample_poly_cascade", "upfirdn_step",
-          "resample_cascade_step", "fm_receiver_stream"}
+# Entries whose banded product's frames are smaller than the JAX
+# package's at these inputs: a NaN spreads over a subset of its outputs.
+BANDED = {"upfirdn", "decimate", "interpolate", "resample_poly_cascade",
+          "upfirdn_step", "resample_cascade_step"}
 FIR_TAPS = np.hamming(65) / np.hamming(65).sum()
 PFB_CHANNELS = 16
 # istft and welch_psd frame as the stft cases at n = 256 do, stft_step's

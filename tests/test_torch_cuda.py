@@ -574,7 +574,7 @@ def test_host_input_lands_on_the_card(dev):
 
 
 @pytest.mark.parametrize("up,down,k", [(147, 160, 127), (3, 2, 127), (1, 10, 127),
-                                       (4, 1, 63), (1, 1, 31)])
+                                       (4, 1, 63), (1, 1, 31), (3, 1, 127), (7, 1, 127)])
 def test_upfirdn_on_cuda(dev, up, down, k):
     """The banded product (the convolution at 1/1) on the card, numpy
     input with no device named, against scipy in float64; complex input

@@ -6,7 +6,8 @@ on the same seeded numpy inputs.
   tensor, resample_poly, decimate, interpolate, the cascade, and the
   streaming steps of upfirdn and of the cascade, to 1e-10;
 * the banded matrix built in numpy against the JAX package's loop, at
-  every grouping;
+  every grouping, and every product of the banded form on operands that
+  BLAS reads in place (no frame copied);
 * float32 against the JAX float32 results at tests/test_streaming_scan.py's
   bound (1e-6);
 * the committed fixture tests/fixtures/dsp/resampler.json.gz (>= 130 dB);
@@ -132,6 +133,32 @@ def test_grouping_rule():
         assert max(c for _, c in tiles) == ppoly.cycles(up)
     assert ppoly.subframes(3) == [(0, 11), (11, 11), (22, 11), (33, 10)]
     assert ppoly.subframes(1) == [(0, 32)] and ppoly.subframes(147) == [(0, 1)]
+
+
+@pytest.mark.parametrize("up,down", [(3, 1), (7, 1), (3, 2), (3, 4), (1, 10), (147, 160)])
+def test_banded_products_read_their_operands_in_place(up, down, monkeypatch):
+    """Every product of the banded form multiplies a strided view whose
+    row stride is at least its width, and writes or adds into such a view
+    of the output, so BLAS copies no frame: a window wider than the frame
+    stride (interpolation by 3 tiles 53 samples at 43) is split into
+    row-shifted terms. The result is scipy's."""
+    seen = []
+
+    def held(a, b, out):
+        for t in (a, out):
+            assert t.stride(1) == 1 and t.stride(0) >= t.shape[1], (t.shape, t.stride())
+        seen.append(a.shape[1])
+
+    mm, addmm_ = torch.mm, torch.Tensor.addmm_
+    monkeypatch.setattr(torch, "mm", lambda a, b, out: (held(a, b, out), mm(a, b, out=out))[1])
+    monkeypatch.setattr(torch.Tensor, "addmm_",
+                        lambda self, a, b: (held(a, b, self), addmm_(self, a, b))[1])
+    x = np.random.default_rng(up * 1000 + down).standard_normal((2, 700))
+    hh = resampler_taps(up, down)
+    got = upfirdn(torch.from_numpy(x), hh, up, down).numpy()
+    np.testing.assert_allclose(got, np.stack([sps.upfirdn(hh, r, up, down) for r in x]),
+                               rtol=0, atol=F64_TOL)
+    assert len(seen) >= len(ppoly.subframes(up))
 
 
 # ── float64 parity ───────────────────────────────────────────────────
