@@ -56,22 +56,28 @@ Phases (one line each; any failed gate exits non-zero):
      (batch 3, a ragged and a whole number of tiles) against its
      step-by-step version in float64;
  15. the large FFT at full width: 2^20 points (K7 then K2) against float64
-     numpy, its roundtrip, 2^16, 2^21 (2^24 printed), dispatch over the last
-     axis and axis 0, the 2^15 four-step route with the process-wide matmul
-     precision lowered, launch counts;
+     numpy, its roundtrip, 2^16, 2^21, 2^22 (2^24 printed); at each, fft_big
+     and ifft_big (K2's turned store and load) torch.equal to the permuted
+     route and the transpose, two launches, peak memory no higher, and one
+     traced call of each at 2^20 with no device kernel but K7 and K2;
+     dispatch over the last axis and axis 0, the 2^15 four-step route with
+     the process-wide matmul precision lowered, launch counts;
  16. the entries above 16384 points: spectrum() of a 2^20-point frame (this
      slice's main path, counted), rfft/irfft at 2^21, a 32768-point
      overlap-save block, 32768 channels;
- 17. times at [64, 2^20] and for one 2^20 row: K7, the forward pair, the
-     natural-order FFT, the roundtrip, the plain versions, torch.fft.fft as
-     the library yardstick (never on a path; K7 with and without the fold
+ 17. times at [64, 2^20] and for one 2^20 row: K7, K2 (rows, turned store,
+     turned load), the forward pair, the natural-order FFT and inverse
+     beside the permuted route and the transpose, the roundtrip, the plain
+     versions, torch.fft.fft and torch.fft.ifft as the library yardstick
+     (never on a path; K7 with and without the fold
      beside torch.fft.fft with and without the grid multiply), the tile
      widths at n = 1024 and n = 256, and axis -2 through K7 against
      movedim + K2;
  18. each kernel's time beside its bound (bytes over 3.35 TB/s or operations
      over 67 TFLOP/s, whichever is larger; K1, K3 and K4 counted as real-input
      transforms), its plain version and the library; K6's blocked store
-     beside its own bound;
+     beside its own bound, and K2's turned store and load on the large
+     FFT's rows beside theirs;
  19. config 3, the polyphase resampler (no kernel of K1-K7 on its path):
      bench.py's call on the committed fixture, resample_poly 147/160 over
      phase 10's [128, 480000] signal, upfirdn_step over it in chunks of
@@ -180,7 +186,7 @@ K7_ALL_N = tuple(1 << k for k in range(8, 13))    # every n K7 takes
 K7_ALL_M = (100, 64)     # a ragged last tile; a whole number of tiles of any width
 K7_ALL_BATCH = 3
 BIG_N = 1 << 20          # BASELINE.json's 1M-point FFT, bench.py:289-305
-BIG_MORE = (1 << 16, 1 << 21)
+BIG_MORE = (1 << 16, 1 << 21, 1 << 22)
 BIG_PRINT = 1 << 24      # printed, not gated
 BIG_BATCH = 64           # [64, 2^20] complex f32: 512 MB, a long-capture job
 FOURSTEP_N = 1 << 15     # the one size between the row kernel and the big route
@@ -321,8 +327,9 @@ def main() -> int:
     from pragma_dsp_tpu_torch.ops.fft_big import (_interstage_grids,
                                                   big_permuted_to_natural,
                                                   big_split, fft_big,
-                                                  fft_big_permuted,
-                                                  ifft_big_from_permuted)
+                                                  fft_big_permuted, ifft_big,
+                                                  ifft_big_from_permuted,
+                                                  natural_to_big_permuted)
     from pragma_dsp_tpu_torch.ops.polyphase import design_lowpass
     from pragma_dsp_tpu_torch.stream import (frame_signal, istft, spectrogram,
                                              spectrogram_amplitude, stft,
@@ -1347,9 +1354,52 @@ def main() -> int:
             gate(big_snr[n][0] >= GATE_DB, f"big FFT n={n}: SNR {big_snr[n][0]:.1f} dB")
             gate(big_snr[n][1] >= GATE_DB,
                  f"big FFT n={n}: roundtrip {big_snr[n][1]:.1f} dB")
+        # natural order: K2's turned store and load, bit for bit the permuted
+        # route and the transpose, two launches, no more memory
+        turned = big_split(n)[1] <= fft_cuda.MAX_TURNED_N
+        for label, new_fn, old_fn in (
+                ("fft_big", lambda: fft_big(x), lambda: natural(fft_big_permuted(x))),
+                ("ifft_big", lambda: ifft_big(x), lambda: ifft_big_from_permuted(
+                    ComplexArray(*(natural_to_big_permuted(t, *big_split(n)) for t in x)),
+                    donate=True))):
+            peaks = []
+            for fn in (old_fn, new_fn):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                got = fn()
+                torch.cuda.synchronize()
+                peaks.append((torch.cuda.max_memory_allocated() - base) / 1e6)
+                if fn is old_fn:
+                    want = got
+            gate(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                 f"{label} n={n} differs from the permuted route and the transpose")
+            moved = {k: v for k, v in counted(new_fn).items() if v}
+            gate(moved == {"fft_cols": 1, "fft_rows": 1}, f"{label} n={n} launched {moved}")
+            gate(peaks[1] <= peaks[0], f"{label} n={n}: peak {peaks[1]:.1f} MB above "
+                 f"the permuted route's {peaks[0]:.1f}")
+            say(f"[15] {label} n = {n} ({'turned inside K2' if turned else 'transpose kept'}): "
+                f"torch.equal to the permuted route and the transpose; launches {moved}; "
+                f"peak {peaks[1]:.1f} MB above the input (that route {peaks[0]:.1f})")
+            del got, want
         if n == BIG_N:
             xb, nat_b = x, nat
     del x, p, back, nat, zf
+    # one traced call of each at 2^20 (after one that uploads the grids the
+    # larger sizes pushed out of their cache): the two kernels and nothing else
+    for label, fn in (("fft_big", lambda: fft_big(xb)), ("ifft_big", lambda: ifft_big(xb))):
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        gate(bool(names) and all("fft_cols_kernel" in k or "fft_rows_kernel" in k
+                                 for k in names),
+             f"{label} at 2^20 traced other device work: {names}")
+        say(f"[15] {label} at n = {BIG_N} traced: {len(names)} device kernels, K7 and K2 only")
     auto = dispatch.fft(xb)
     rt = dispatch.ifft(auto)
     gate(torch.equal(auto.real, nat_b[0]) and torch.equal(auto.imag, nat_b[1]),
@@ -1513,16 +1563,27 @@ def main() -> int:
                 lambda: fft_cuda.fft_rows_cuda(work.real.view(-1, n1b),
                                                work.imag.view(-1, n1b), donate=True),
                 refill),
+            "K2 on the pair's rows": (
+                lambda: fft_cuda.fft_rows_cuda(work.real.view(-1, n1b),
+                                               work.imag.view(-1, n1b)), None),
+            "K2 turned store on the pair's rows": (
+                lambda: fft_cuda.fft_rows_turned_cuda(*w3), None),
+            "K2 turned load, inverse": (
+                lambda: fft_cuda.fft_rows_turned_cuda(*w3, inverse=True, load=True), None),
             "fft_big_permuted, donated": (
                 lambda: fft_big_permuted(work, donate=True), refill),
             "fft_big_permuted": (lambda: fft_big_permuted(work), None),
             "fft_big (natural order)": (lambda: fft_big(work), None),
+            "fft_big_permuted then the transpose (the route before the turned store)": (
+                lambda: natural(fft_big_permuted(work)), None),
+            "ifft_big (natural order)": (lambda: ifft_big(work), None),
             "roundtrip permuted, donated": (roundtrip, None),
             "plain pair (Stockham columns, grid, Stockham rows)": (
                 lambda: fft_cuda.fft_rows_plain(*(p.reshape(-1, n1b) for p in
                                                   fft_cuda.fft_cols_plain(*w3, fold=grid_b))),
                 None),
             "torch.fft.fft dim -1 (library)": (lambda: torch.fft.fft(cplx, dim=-1), None),
+            "torch.fft.ifft dim -1 (library)": (lambda: torch.fft.ifft(cplx, dim=-1), None),
             "axis -2 through dispatch (K7)": (
                 lambda: dispatch.fft(ComplexArray(*w3), axis=-2), None),
             "axis -2 as movedim + K2": (movedim_rows, None),
@@ -1698,6 +1759,16 @@ def main() -> int:
         f"[{C5_WIDE}] complex, C={c}): {ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
         f"({100 * bound_ms / ms:.1f}% of the time), plain {pms:.4f} ms, natural store "
         f"{pfb_ms['K6 (pfb_channelize)']:.4f} ms")
+    # K2's turned instances on the large FFT's rows: the same bytes as the row K2
+    kb2 = BIG_BATCH * n2b * n1b
+    bound_ms, bound_by = bound(16 * kb2 + 8 * n1b, BIG_BATCH * n2b * fft_flops(n1b))
+    rows_ms = big_ms[("K2 on the pair's rows", BIG_BATCH)]
+    for label in ("K2 turned store on the pair's rows", "K2 turned load, inverse"):
+        ms = big_ms[(label, BIG_BATCH)]
+        say(f"[18] fft_rows, {label} ([{BIG_BATCH * n2b}, {n1b}] rows, the other side "
+            f"[{BIG_BATCH}, {n1b}, {n2b}]): {ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+            f"({100 * bound_ms / ms:.1f}% of the time), row K2 on the same rows "
+            f"{rows_ms:.4f} ms")
     # 19. config 3: the polyphase resampler. No kernel of K1-K7 lies on
     # this path or the next: their counters must not move.
     import gzip

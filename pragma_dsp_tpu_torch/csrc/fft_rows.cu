@@ -32,38 +32,145 @@
 // A multi-pass block holds a barrier between its last load and its first
 // store, a one-pass thread owns its whole row, and rows are disjoint, so an
 // in-place call is safe.
+//
+// Turned instances (TURN, n from 256 to 4096) serve the large FFT
+// (ops/fft_big.py), whose natural order is the transpose of its row
+// stage's: they read or write the rows as the columns of a [B, n, cols]
+// array, so that no transpose of its own runs before or after the kernel.
+// kStoreTurned transforms rows [B*cols, n] and writes point k of row
+// (b, j) at [b, k, j]; kLoadTurned reads row (b, j) from the column
+// [b, :, j] and writes rows [B*cols, n]. The arithmetic is the core's,
+// so a turned launch gives the same bits as a row launch followed (or
+// preceded) by the transpose.
+// * A block holds G consecutive rows j of one item (G = 8, or fewer where
+//   8 rows would pass 1024 threads: 4 at n = 4096), so that for each point
+//   k the block touches G consecutive words in device memory: with G = 8
+//   every 32-byte sector is read or written whole.
+// * The turned side goes through shared memory, laid out [g][k] at a
+//   stride of n + 32/G words over the exchange (free before the core's
+//   first pass and after its last, a barrier on each side). The lanes of a
+//   warp run over the rows first there (g = lane mod G), so they touch 32
+//   different banks and, in device memory, 32/G whole sectors.
+// * A turned launch never works in place: its output is laid out
+//   otherwise than its input.
 #include "fft_regs.cuh"
 
 namespace {
 
-template <int LOG2N, int PLAN>
-__global__ void __launch_bounds__(RowShape<LOG2N, PLAN>::kBlock)
+// How a launch lays its rows out in device memory (the C entry's turn).
+enum Turn : int { kRowsInRowsOut = 0, kStoreTurned = 1, kLoadTurned = 2 };
+
+// The sizes that have turned instances.
+constexpr int kTurnMinLog2N = 8, kTurnMaxLog2N = 12;
+
+// Rows a block of a turned launch holds: 8, or as many as 1024 threads hold.
+__host__ __device__ constexpr int turn_rows(int threads) {
+  return threads * 8 <= 1024 ? 8 : 1024 / threads;
+}
+
+// The rows, threads and shared memory of a block of a launch.
+template <int LOG2N, int PLAN, int TURN>
+struct RowBlock {
+  using Row = RowShape<LOG2N, PLAN>;
+  static constexpr int kRows = TURN == kRowsInRowsOut ? Row::kRows : turn_rows(Row::kThreads);
+  static constexpr int kLog2Rows = log2_exact(kRows);
+  static constexpr int kBlock = kRows * Row::kThreads;
+  // Words between two rows of the turned staging: a warp's turned access
+  // (lanes over g first) touches 32 different banks.
+  static constexpr int kTurnStride = Row::kN + 32 / kRows;
+  static constexpr size_t kSmem =
+      (PLAN >> 4) != 0 ? 2 * sizeof(float) * kRows * static_cast<size_t>(Row::kStride) : 0;
+  static_assert(TURN == kRowsInRowsOut || (kTurnStride <= Row::kStride && (PLAN >> 4) != 0),
+                "the turned staging lies inside the exchange");
+};
+
+template <int LOG2N, int PLAN, int TURN>
+__global__ void __launch_bounds__(RowBlock<LOG2N, PLAN, TURN>::kBlock)
 fft_rows_kernel(const float* in_re, const float* in_im, float* out_re,
                 float* out_im, const float2* __restrict__ tw, int batch,
-                float scale) {
+                int cols, float scale) {
   using Shape = RowShape<LOG2N, PLAN>;
+  using Block = RowBlock<LOG2N, PLAN, TURN>;
   constexpr int R = Shape::kRegs;
   constexpr int LOG2T = Shape::kLog2T;
   extern __shared__ float smem[];
   const int local = threadIdx.x >> LOG2T;
   const int tid = threadIdx.x & (Shape::kThreads - 1);
-  const long long row = static_cast<long long>(blockIdx.x) * Shape::kRows + local;
-  const bool active = row < batch;
-  const size_t at = (static_cast<size_t>(active ? row : 0) << LOG2N) + tid;
+  const long long row = static_cast<long long>(blockIdx.x) * Block::kRows + local;
   float* sre = smem + local * Shape::kStride;
-  float* sim = sre + Shape::kRows * Shape::kStride;
+  float* sim = sre + Block::kRows * Shape::kStride;
   float xr[R], xi[R];
+  if constexpr (TURN == kRowsInRowsOut) {
+    const bool active = row < batch;
+    const size_t at = (static_cast<size_t>(active ? row : 0) << LOG2N) + tid;
 #pragma unroll
-  for (int q = 0; q < R; ++q) {
-    xr[q] = active ? in_re[at + (q << LOG2T)] : 0.0f;
-    xi[q] = active ? in_im[at + (q << LOG2T)] : 0.0f;
-  }
-  fft_regs<R, LOG2T, PLAN>(xr, xi, sre, sim, tw, tid);
-  if (!active) return;
+    for (int q = 0; q < R; ++q) {
+      xr[q] = active ? in_re[at + (q << LOG2T)] : 0.0f;
+      xi[q] = active ? in_im[at + (q << LOG2T)] : 0.0f;
+    }
+    fft_regs<R, LOG2T, PLAN>(xr, xi, sre, sim, tw, tid);
+    if (!active) return;
 #pragma unroll
-  for (int q = 0; q < R; ++q) {
-    out_re[at + (q << LOG2T)] = xr[q] * scale;
-    out_im[at + (q << LOG2T)] = xi[q] * scale;
+    for (int q = 0; q < R; ++q) {
+      out_re[at + (q << LOG2T)] = xr[q] * scale;
+      out_im[at + (q << LOG2T)] = xi[q] * scale;
+    }
+  } else {
+    // The block's rows are j0 .. j0 + G - 1 of item b; the turned array of
+    // that item starts at b*n*cols, and its column j0 at j0.
+    constexpr int S = Block::kTurnStride;
+    constexpr int KSTEP = Block::kBlock >> Block::kLog2Rows;  // points a q covers
+    const long long first = static_cast<long long>(blockIdx.x) * Block::kRows;
+    const int j0 = static_cast<int>(first % cols);
+    const int g = threadIdx.x & (Block::kRows - 1);
+    const int k = threadIdx.x >> Block::kLog2Rows;
+    const size_t turned = (static_cast<size_t>(first - j0) << LOG2N) + j0 +
+                          static_cast<size_t>(k) * cols + g;
+    const size_t kstep = static_cast<size_t>(KSTEP) * cols;
+    const size_t at = (static_cast<size_t>(row) << LOG2N) + tid;
+    float* tre = smem;
+    float* tim = smem + Block::kRows * S;
+    if constexpr (TURN == kLoadTurned) {
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        tre[g * S + k + q * KSTEP] = in_re[turned + q * kstep];
+        tim[g * S + k + q * KSTEP] = in_im[turned + q * kstep];
+      }
+      __syncthreads();
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        xr[q] = tre[local * S + tid + (q << LOG2T)];
+        xi[q] = tim[local * S + tid + (q << LOG2T)];
+      }
+      __syncthreads();  // the core's first exchange overwrites the staging
+    } else {
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        xr[q] = in_re[at + (q << LOG2T)];
+        xi[q] = in_im[at + (q << LOG2T)];
+      }
+    }
+    fft_regs<R, LOG2T, PLAN>(xr, xi, sre, sim, tw, tid);
+    if constexpr (TURN == kStoreTurned) {
+      __syncthreads();  // the core's last reloads from the exchange are done
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        tre[local * S + tid + (q << LOG2T)] = xr[q] * scale;
+        tim[local * S + tid + (q << LOG2T)] = xi[q] * scale;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        out_re[turned + q * kstep] = tre[g * S + k + q * KSTEP];
+        out_im[turned + q * kstep] = tim[g * S + k + q * KSTEP];
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        out_re[at + (q << LOG2T)] = xr[q] * scale;
+        out_im[at + (q << LOG2T)] = xi[q] * scale;
+      }
+    }
   }
 }
 
@@ -71,30 +178,49 @@ struct Args {
   const float *in_re, *in_im;
   float *out_re, *out_im;
   const float2* tw;
-  int batch;
+  int batch, cols, turn;
   float scale;
   cudaStream_t stream;
 };
 
+template <int LOG2N, int PLAN, int TURN>
+int launch_turn(const Args& a) {
+  using Block = RowBlock<LOG2N, PLAN, TURN>;
+  cudaError_t err = allow_smem(fft_rows_kernel<LOG2N, PLAN, TURN>, Block::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (a.batch + Block::kRows - 1) / Block::kRows;
+  fft_rows_kernel<LOG2N, PLAN, TURN><<<blocks, Block::kBlock, Block::kSmem, a.stream>>>(
+      a.in_re, a.in_im, a.out_re, a.out_im, a.tw, a.batch, a.cols, a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int LOG2N, int PLAN>
 int launch(const Args& a) {
-  using Shape = RowShape<LOG2N, PLAN>;
-  cudaError_t err = allow_smem(fft_rows_kernel<LOG2N, PLAN>, Shape::kSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (a.batch + Shape::kRows - 1) / Shape::kRows;
-  fft_rows_kernel<LOG2N, PLAN><<<blocks, Shape::kBlock, Shape::kSmem, a.stream>>>(
-      a.in_re, a.in_im, a.out_re, a.out_im, a.tw, a.batch, a.scale);
-  return static_cast<int>(cudaGetLastError());
+  if (a.turn == kRowsInRowsOut) return launch_turn<LOG2N, PLAN, kRowsInRowsOut>(a);
+  if constexpr (LOG2N >= kTurnMinLog2N && LOG2N <= kTurnMaxLog2N) {
+    // whole groups of rows, none across two items
+    constexpr int G = RowBlock<LOG2N, PLAN, kStoreTurned>::kRows;
+    if (a.cols < G || a.cols % G != 0 || a.batch % a.cols != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (a.turn == kStoreTurned) return launch_turn<LOG2N, PLAN, kStoreTurned>(a);
+    if (a.turn == kLoadTurned) return launch_turn<LOG2N, PLAN, kLoadTurned>(a);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // tw: the pass table of the plan (see fft_regs.cuh); plan: log2 of pass p's
 // radix in nibble p, which must be the plan of n's template instance.
+// turn: 0 rows [batch, n] in and out; 1 (store turned) rows in, out
+// [batch/cols, n, cols]; 2 (load turned) in [batch/cols, n, cols], rows
+// out. A turned launch takes n from 256 to 4096 and cols a multiple of the
+// rows its block holds (8; 4 at n = 4096) that divides batch; cols is
+// unused at turn 0.
 extern "C" int fft_rows_f32(const void* in_re, const void* in_im, void* out_re,
                             void* out_im, const void* tw, int plan, int batch,
-                            int n, int inverse, void* stream) {
-  if (n < 1 || (n & (n - 1)) != 0 || batch < 1)
+                            int n, int cols, int turn, int inverse, void* stream) {
+  if (n < 1 || (n & (n - 1)) != 0 || batch < 1 || turn < kRowsInRowsOut || turn > kLoadTurned)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.in_re = static_cast<const float*>(inverse ? in_im : in_re);
@@ -103,6 +229,8 @@ extern "C" int fft_rows_f32(const void* in_re, const void* in_im, void* out_re,
   a.out_im = static_cast<float*>(inverse ? out_re : out_im);
   a.tw = static_cast<const float2*>(tw);
   a.batch = batch;
+  a.cols = cols;
+  a.turn = turn;
   a.scale = inverse ? 1.0f / static_cast<float>(n) : 1.0f;  // exact: n = 2^k
   a.stream = static_cast<cudaStream_t>(stream);
   switch (log2_exact(n)) {

@@ -31,8 +31,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # in_re, in_im, out_re, out_im, pass table, plan, batch, n, inverse, stream
-    "fft_rows_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # in_re, in_im, out_re, out_im, pass table, plan, batch, n, cols, turn,
+    # inverse, stream
+    "fft_rows_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, win, amp, ph (nullable), twc, tws, pass table, plan, batch, n, stream
     "spectrum_onesided_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # x, win, amp, cos, sin, pass table (nullable), plan, batch, n, stream

@@ -6,19 +6,25 @@ Counterpart of ``pragma_dsp_tpu/ops/fft_big.py``. N points are viewed as
 1. the column kernel K7: stage-1 sub-FFTs over the n2b axis (axis -2),
    with the inter-stage twiddle grid W_N^{k2*n1} folded into its store
    (one streamed constant read, no twiddle pass of its own);
-2. the row kernel K2: stage-2 sub-FFTs over the n1b axis (the last), in
-   place in stage 1's output.
+2. the row kernel K2: stage-2 sub-FFTs over the n1b axis (the last).
 
 Device-memory traffic of the forward pair: in + mid + mid + out + the
 grid, 2.5 passes over the data for one row, and 2 + 1/(2B) for a batch of
 B, since the grid is shared.
 
-**Layout.** The forward result has shape [..., n2b, n1b]; element [k2, k1]
-holds X[k2 + n2b*k1], natural order within each axis. Nothing transposes
-between or after the stages, so fft -> pointwise -> ifft never pays a
-transpose: :func:`ifft_big_from_permuted` consumes this layout and emits
-natural time order. :func:`big_permuted_to_natural` is one transpose, and
-:func:`fft_big` / :func:`ifft_big` pay it.
+**Layout.** :func:`fft_big_permuted` runs K2 in place in stage 1's output
+and returns shape [..., n2b, n1b]; element [k2, k1] holds X[k2 + n2b*k1],
+natural order within each axis. Nothing transposes between or after the
+stages, so fft -> pointwise -> ifft never pays a transpose:
+:func:`ifft_big_from_permuted` consumes this layout and emits natural time
+order. Natural bin order is the transpose of that layout, [..., n1b, n2b]:
+:func:`fft_big` runs K2's turned store, which writes each row as a column
+of a new output, and :func:`ifft_big` K2's turned load, which reads the
+columns of its input as rows, so neither runs a transpose of its own. Up
+to n1b = ``MAX_TURNED_N`` (N <= 2^24), the widest turned instance, which
+read faster than the transpose at every size it takes; above it they run
+the permuted route and :func:`big_permuted_to_natural` (one transpose) or
+:func:`natural_to_big_permuted`.
 
 This differs from the JAX package by design. Its kernels emit 128-digit
 permuted rows and columns (element [p, q] holds k2 = p//128 +
@@ -42,9 +48,10 @@ import numpy as np
 import torch
 
 from ..core.complex import ComplexArray, as_complex_array, is_power_of_two
-from .fft_cuda import (MAX_COLS_N, MAX_DFT_N, MAX_ROWS_N, fft_cols_cuda,
-                       fft_cols_plain, fft_rows_cuda, fft_rows_plain,
-                       resolve_precision)
+from .fft_cuda import (MAX_COLS_N, MAX_DFT_N, MAX_ROWS_N, MAX_TURNED_N,
+                       fft_cols_cuda, fft_cols_plain, fft_rows_cuda,
+                       fft_rows_plain, fft_rows_turned_cuda,
+                       fft_rows_turned_plain, resolve_precision)
 
 __all__ = ["fft_big_permuted", "ifft_big_from_permuted", "big_split",
            "big_permuted_to_natural", "natural_to_big_permuted",
@@ -125,6 +132,14 @@ def _rows(re, im, inverse: bool, donate: bool):
     return fft_rows_plain(re, im, inverse)
 
 
+def _rows_turned(re, im, inverse: bool, load: bool):
+    """The row stage with one side turned: K2's turned wrapper for float32,
+    else its plain version."""
+    if re.dtype == torch.float32:
+        return fft_rows_turned_cuda(re, im, inverse, load)
+    return fft_rows_turned_plain(re, im, inverse, load)
+
+
 def _working_planes(xc: ComplexArray, shape, donate: bool):
     """Contiguous planes of ``shape`` in the working dtype (bfloat16 is
     cast to float32), and whether the first stage may write into them: the
@@ -186,21 +201,45 @@ def natural_to_big_permuted(x: torch.Tensor, n2b: int, n1b: int) -> torch.Tensor
 
 def fft_big(x, precision: Optional[str] = None,
             donate: bool = False) -> ComplexArray:
-    """Forward FFT of [..., n], natural bin order (pays the transpose;
-    pipelines that can, use :func:`fft_big_permuted`)."""
-    p = fft_big_permuted(x, precision, donate)
-    n2b, n1b = p.real.shape[-2:]
-    return ComplexArray(big_permuted_to_natural(p.real, n2b, n1b),
-                        big_permuted_to_natural(p.imag, n2b, n1b))
+    """Forward FFT of [..., n], natural bin order: K7 (with the fold), then
+    K2's turned store into one new output (the same bits as
+    :func:`fft_big_permuted` then :func:`big_permuted_to_natural`).
+    ``donate`` lets stage 1 write into x's planes."""
+    resolve_precision(precision)
+    xc = as_complex_array(x)
+    n = xc.real.shape[-1]
+    n2b, n1b = big_split(n)
+    if n1b > MAX_TURNED_N:
+        p = fft_big_permuted(xc, precision, donate)
+        return ComplexArray(big_permuted_to_natural(p.real, n2b, n1b),
+                            big_permuted_to_natural(p.imag, n2b, n1b))
+    dtype = xc.real.dtype
+    flat = xc.real.shape[:-1] + (n,)
+    re, im, own = _working_planes(xc, (-1, n2b, n1b), donate)
+    grids = _device_grids(n2b, n1b, -1.0, re.dtype, re.device)
+    re, im = _cols(re, im, False, grids, own)
+    re, im = _rows_turned(re, im, False, load=False)
+    return ComplexArray(re.reshape(flat).to(dtype), im.reshape(flat).to(dtype))
 
 
 def ifft_big(x, precision: Optional[str] = None,
              donate: bool = False) -> ComplexArray:
-    """Inverse FFT, natural order both sides, 1/N normalised. The
-    transposed copy is this function's own, so the kernels work in place
-    in it whatever ``donate`` says."""
+    """Inverse FFT, natural order both sides, 1/N normalised: K2's turned
+    load into one new buffer, then K7 (the fold on its load) in place in
+    it. The input is never written; ``donate`` is accepted for the
+    signature's sake."""
+    resolve_precision(precision)
     xc = as_complex_array(x)
-    n2b, n1b = big_split(xc.real.shape[-1])
-    p = ComplexArray(natural_to_big_permuted(xc.real, n2b, n1b),
-                     natural_to_big_permuted(xc.imag, n2b, n1b))
-    return ifft_big_from_permuted(p, precision, donate=True)
+    n = xc.real.shape[-1]
+    n2b, n1b = big_split(n)
+    if n1b > MAX_TURNED_N:
+        p = ComplexArray(natural_to_big_permuted(xc.real, n2b, n1b),
+                         natural_to_big_permuted(xc.imag, n2b, n1b))
+        return ifft_big_from_permuted(p, precision, donate=True)
+    dtype = xc.real.dtype
+    flat = xc.real.shape[:-1] + (n,)
+    re, im, _ = _working_planes(xc, (-1, n1b, n2b), False)
+    re, im = _rows_turned(re, im, True, load=True)
+    grids = _device_grids(n2b, n1b, 1.0, re.dtype, re.device)
+    re, im = _cols(re, im, True, grids, True)
+    return ComplexArray(re.reshape(flat).to(dtype), im.reshape(flat).to(dtype))

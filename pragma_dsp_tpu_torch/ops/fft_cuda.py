@@ -11,7 +11,9 @@ Counterpart of ``pragma_dsp_tpu/ops/fft_pallas.py``:
 * K2 ``fft_rows`` (``csrc/fft_rows.cu``) replaces ``_fft2d_kernel``: a
   batched complex FFT over the last axis, natural order in and out, by the
   register-resident mixed-radix core (``csrc/fft_regs.cuh``) that K1, K3,
-  K4 and K5 share; :func:`radix_plan` is its plan.
+  K4 and K5 share; :func:`radix_plan` is its plan. Its turned instances
+  (:func:`fft_rows_turned_cuda`) read or write the rows as the columns of
+  a [B, n, m] array, the large FFT's natural order.
 * K3 ``spectrum_twosided`` (``csrc/spectrum_twosided.cu``) replaces
   ``_spectrum_kernel``: window -> DFT -> |X|/n over all n bins, for any
   n <= 128 and power-of-two n above; it serves ``sides="two"`` and the
@@ -83,6 +85,11 @@ __all__ = [
     "framed_spectrum_amp_phase_plain",
     "fft_rows_cuda",
     "fft_rows_plain",
+    "fft_rows_turned_cuda",
+    "fft_rows_turned_plain",
+    "turn_rows",
+    "MIN_TURNED_N",
+    "MAX_TURNED_N",
     "fft_rows_steps",
     "radix_plan",
     "points_per_thread",
@@ -98,6 +105,9 @@ __all__ = [
 
 # A row of complex f32 must fit one block's shared memory (8*n bytes).
 MAX_ROWS_N = 16384
+# The sizes K2's turned instances take (kTurnMinLog2N, kTurnMaxLog2N in
+# csrc/fft_rows.cu): 8 rows a block to n = 2048, 4 at 4096.
+MIN_TURNED_N, MAX_TURNED_N = 256, 4096
 # The column kernel's largest transform, the JAX package's bound
 # (fft_pallas.py:791), kept as the contract: ops.fft_big splits by it. Four
 # columns of 4096 points are the 1024 threads of one block.
@@ -799,18 +809,37 @@ def fft_rows_plain(re: torch.Tensor, im: torch.Tensor, inverse: bool = False
     return ore.T.contiguous(), oim.T.contiguous()
 
 
-def _launch_fft_rows(re: torch.Tensor, im: torch.Tensor, inverse: bool,
-                     donate: bool):
+def _check_rows_planes(re: torch.Tensor, im: torch.Tensor, n: int) -> None:
     if re.dtype != torch.float32 or im.dtype != torch.float32:
         raise TypeError(f"the row FFT kernel takes float32 planes, got "
                         f"{re.dtype}/{im.dtype}")
     if not (re.is_cuda and im.is_cuda and re.device == im.device):
         raise ValueError("the row FFT kernel needs both planes on one CUDA device")
-    n = re.shape[-1]
     if n > MAX_ROWS_N:
         raise ValueError(
             f"the row FFT kernel covers n <= {MAX_ROWS_N}, got {n}: "
             "ops.dispatch.fft routes larger transforms (ops.fft_big)")
+
+
+def _launch_rows_kernel(re, im, ore, oim, rows: int, n: int, cols: int,
+                        turn: int, inverse: bool) -> None:
+    """One launch of K2 on contiguous float32 planes (``turn``: 0 rows in
+    and out, 1 stored turned, 2 loaded turned; ``cols`` the turned width)."""
+    lib = _build.library()
+    tw = _device_pass_twiddles(n, re.device)
+    with torch.cuda.device(re.device):
+        stream = torch.cuda.current_stream(re.device).cuda_stream
+        code = lib.fft_rows_f32(re.data_ptr(), im.data_ptr(), ore.data_ptr(),
+                                oim.data_ptr(), tw.data_ptr(), _plan_code_of(n),
+                                rows, n, cols, turn, int(inverse), stream)
+    _build.check(lib, code, "fft_rows")
+    LAUNCHES["fft_rows"] += 1
+
+
+def _launch_fft_rows(re: torch.Tensor, im: torch.Tensor, inverse: bool,
+                     donate: bool):
+    n = re.shape[-1]
+    _check_rows_planes(re, im, n)
     if donate and not (re.is_contiguous() and im.is_contiguous()):
         raise ValueError("donate=True needs contiguous input planes")
     re, im = re.contiguous(), im.contiguous()
@@ -818,16 +847,7 @@ def _launch_fft_rows(re: torch.Tensor, im: torch.Tensor, inverse: bool,
     batch = re.shape[0]
     if batch == 0:
         return ore, oim
-    lib = _build.library()
-    tw = _device_pass_twiddles(n, re.device)
-    with torch.cuda.device(re.device):
-        stream = torch.cuda.current_stream(re.device).cuda_stream
-        code = lib.fft_rows_f32(re.data_ptr(), im.data_ptr(), ore.data_ptr(),
-                                oim.data_ptr(), tw.data_ptr(),
-                                _plan_code_of(n), batch, n, int(inverse),
-                                stream)
-    _build.check(lib, code, "fft_rows")
-    LAUNCHES["fft_rows"] += 1
+    _launch_rows_kernel(re, im, ore, oim, batch, n, 0, 0, inverse)
     return ore, oim
 
 
@@ -851,6 +871,69 @@ def fft_rows_cuda(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
     if re.is_cuda or im.is_cuda:
         return _launch_fft_rows(re, im, inverse, donate)
     return fft_rows_plain(re, im, inverse)
+
+
+def turn_rows(n: int) -> int:
+    """Rows of one item a block of K2's turned instances holds (``turn_rows``
+    in csrc/fft_rows.cu): 8, so that the turned side's accesses cover
+    32-byte sectors whole, or fewer where 8 rows of n/16 threads would pass
+    1024 threads (4 at n = 4096). The turned width must be a multiple."""
+    threads = n // points_per_thread(n)
+    return 8 if threads * 8 <= 1024 else 1024 // threads
+
+
+def fft_rows_turned_plain(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
+                          load: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2's turned instances' plain version: :func:`fft_rows_plain` over
+    the rows, then the transpose of the last two axes (``load=False``: rows
+    [..., m, n] in, [..., n, m] out), or the transpose first (``load=True``:
+    [..., n, m] in, the transforms of its columns as rows [..., m, n] out).
+    Contiguous output."""
+    if load:
+        re, im = re.transpose(-2, -1), im.transpose(-2, -1)
+    shape = re.shape
+    n = shape[-1]
+    ore, oim = fft_rows_plain(re.reshape(-1, n), im.reshape(-1, n), inverse)
+    ore, oim = ore.reshape(shape), oim.reshape(shape)
+    if not load:
+        ore, oim = ore.transpose(-2, -1).contiguous(), oim.transpose(-2, -1).contiguous()
+    return ore, oim
+
+
+def fft_rows_turned_cuda(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
+                         load: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2 with one side turned, so that no transpose runs around it.
+
+    ``load=False`` (the turned store): rows [B, m, n] in; out [B, n, m]
+    with out[b, k, j] = FFT(row j of item b)[k]. ``load=True`` (the turned
+    load): [B, n, m] in; row j of item b of the output [B, m, n] is the FFT
+    of column j of item b. The same bits as :func:`fft_rows_cuda` followed,
+    or preceded, by the transpose; the forward transform is unnormalised,
+    the inverse scales by 1/n. On CUDA: power-of-two n from 256 to 4096
+    (:data:`MIN_TURNED_N`, :data:`MAX_TURNED_N`), m a multiple of
+    :func:`turn_rows`, a new output (never in place). A CPU tensor runs
+    :func:`fft_rows_turned_plain`.
+    """
+    if re.ndim != 3 or re.shape != im.shape:
+        raise ValueError(f"fft_rows_turned takes two [B, m, n] or [B, n, m] planes, "
+                         f"got {tuple(re.shape)} and {tuple(im.shape)}")
+    batch, a, b = re.shape
+    n, m = (a, b) if load else (b, a)
+    if not is_power_of_two(n):
+        raise ValueError(f"FFT size must be power of two, got {n}")
+    if not (re.is_cuda or im.is_cuda):
+        return fft_rows_turned_plain(re, im, inverse, load)
+    _check_rows_planes(re, im, n)
+    if not MIN_TURNED_N <= n <= MAX_TURNED_N or m % turn_rows(n) != 0:
+        raise ValueError(
+            f"the turned row FFT kernel takes n in {MIN_TURNED_N}..{MAX_TURNED_N} and "
+            f"a width that is a multiple of {turn_rows(n)}, got n = {n}, width {m}")
+    re, im = re.contiguous(), im.contiguous()
+    out = (batch, m, n) if load else (batch, n, m)
+    ore, oim = re.new_empty(out), im.new_empty(out)
+    if batch * m:
+        _launch_rows_kernel(re, im, ore, oim, batch * m, n, m, 2 if load else 1, inverse)
+    return ore, oim
 
 
 # ── K7: column FFT with a folded twiddle grid ────────────────────────

@@ -18,16 +18,22 @@ the device's own time shows. The row and column FFTs are timed beside
 torch.fft.fft on the same points as one complex64 tensor (the library
 yardstick, with the grid multiply after it where K7 folds the grid in; the
 port never calls it). Only the public wrappers are called, so a checkout whose C
-entries differ is timed the same way. K1's and K4's rows carry a digest of
-their output on the seeded input: two checkouts whose digests agree give
-bit-equal results there. Prints the card (nvidia-smi name and power limit)
-and one JSON object per shape. Imports nothing of JAX.
+entries differ is timed the same way; a row whose wrapper the checkout lacks
+(K2's turned instances before they existed) is left out. K1's, K2's and
+K4's rows carry a digest of their output on the seeded input: two checkouts
+whose digests agree give bit-equal results there. The natural-order large
+FFT (fft_big, ifft_big) is timed at [64, 2^20] beside cuFFT, and at 2^22 to
+2^25 points (a batch of 2^25 points) beside the permuted route and the
+transpose, the measurement behind the widest row stage that fft_big turns
+inside K2. Prints the card (nvidia-smi name and power limit) and one JSON
+object per shape. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
 import hashlib
+import importlib
 import json
 import os
 import subprocess
@@ -48,6 +54,8 @@ PFB_CHANNELS = (256, 128, 1024, 16384)   # config 5's C first
 K7_SHAPES = ((64, 1024, 1024, True), (64, 1024, 1024, False), (64, 256, 4096, True),
              (16, 4096, 1024, True))     # [batch, n, m], with the fold
 BIG_SHAPE = (64, 1 << 20)                # the large FFT's batch
+BIG_RULE_BITS = (22, 23, 24, 25)         # either side of the turned row stage's limit
+BIG_RULE_POINTS = 1 << 25                # a batch of 2^25 points at each size
 SPIN_CYCLES = 6_000_000                  # a few ms of device spin
 
 
@@ -67,6 +75,7 @@ def main() -> int:
     from pragma_dsp_tpu_torch.core import ComplexArray
     from pragma_dsp_tpu_torch.ops import (conv_cuda, dispatch, fft_cuda, fir_filter,
                                           pfb_cuda, pfb_taps)
+    big = importlib.import_module("pragma_dsp_tpu_torch.ops.fft_big")
     from pragma_dsp_tpu_torch.ops.fft_big import _interstage_grids, fft_big_permuted
     from pragma_dsp_tpu_torch.ops.polyphase import design_lowpass
 
@@ -113,7 +122,13 @@ def main() -> int:
         im = torch.randn((batch, n), generator=gen, device=dev)
         cplx = torch.complex(re, im)
         report("fft_rows", (batch, n), lambda: fft_cuda.fft_rows_cuda(re, im),
-               library=lambda: torch.fft.fft(cplx, dim=-1))
+               library=lambda: torch.fft.fft(cplx, dim=-1), with_digest=True)
+        if (batch, n) == (65536, 1024) and hasattr(fft_cuda, "fft_rows_turned_cuda"):
+            r3, i3 = re.view(64, 1024, n), im.view(64, 1024, n)
+            report("fft_rows turned store", (batch, n),
+                   lambda: fft_cuda.fft_rows_turned_cuda(r3, i3), with_digest=True)
+            report("fft_rows turned load, inverse", (batch, n),
+                   lambda: fft_cuda.fft_rows_turned_cuda(r3, i3, inverse=True, load=True))
     for batch, n in K1_SHAPES:
         x = torch.randn((batch, n), generator=gen, device=dev)
         report("spectrum_onesided amp+phase", (batch, n),
@@ -171,11 +186,40 @@ def main() -> int:
             report("fft_cols inverse with the fold", (batch, n, m),
                    lambda: fft_cuda.fft_cols_cuda(re, im, inverse=True, fold=fold))
         del cplx, grid
-    big = ComplexArray(torch.randn(BIG_SHAPE, generator=gen, device=dev),
-                       torch.randn(BIG_SHAPE, generator=gen, device=dev))
-    cplx = torch.complex(big.real, big.imag)
-    report("fft_big_permuted", BIG_SHAPE, lambda: fft_big_permuted(big),
+    x = ComplexArray(torch.randn(BIG_SHAPE, generator=gen, device=dev),
+                     torch.randn(BIG_SHAPE, generator=gen, device=dev))
+    cplx = torch.complex(x.real, x.imag)
+    report("fft_big_permuted", BIG_SHAPE, lambda: fft_big_permuted(x),
            library=lambda: torch.fft.fft(cplx, dim=-1))
+    report("fft_big", BIG_SHAPE, lambda: big.fft_big(x),
+           library=lambda: torch.fft.fft(cplx, dim=-1), with_digest=True)
+    report("ifft_big", BIG_SHAPE, lambda: big.ifft_big(x),
+           library=lambda: torch.fft.ifft(cplx, dim=-1))
+    del x, cplx
+    for bits in BIG_RULE_BITS:
+        n = 1 << bits
+        n2b, n1b = big.big_split(n)
+        x = ComplexArray(torch.randn((BIG_RULE_POINTS // n, n), generator=gen, device=dev),
+                         torch.randn((BIG_RULE_POINTS // n, n), generator=gen, device=dev))
+        shape = (BIG_RULE_POINTS // n, n)
+
+        def permuted_then_transpose():
+            p = fft_big_permuted(x)
+            return (big.big_permuted_to_natural(p.real, n2b, n1b),
+                    big.big_permuted_to_natural(p.imag, n2b, n1b))
+
+        def transpose_then_permuted():
+            p = ComplexArray(big.natural_to_big_permuted(x.real, n2b, n1b),
+                             big.natural_to_big_permuted(x.imag, n2b, n1b))
+            return big.ifft_big_from_permuted(p, donate=True)
+
+        report(f"fft_big at {n2b} x {n1b}", shape, lambda: big.fft_big(x))
+        report(f"fft_big_permuted then the transpose at {n2b} x {n1b}", shape,
+               permuted_then_transpose)
+        report(f"ifft_big at {n2b} x {n1b}", shape, lambda: big.ifft_big(x))
+        report(f"the transpose then ifft_big_from_permuted at {n2b} x {n1b}", shape,
+               transpose_then_permuted)
+        del x
     return 0
 
 

@@ -27,8 +27,9 @@ from pragma_dsp_tpu_torch.ops.conv_cuda import (circular_convolve_plain,
                                                 circular_convolve_steps,
                                                 overlap_save_cuda, overlap_save_plain)
 from pragma_dsp_tpu_torch.ops.fft_big import (big_permuted_to_natural, big_split,
-                                              fft_big_permuted,
-                                              ifft_big_from_permuted)
+                                              fft_big, fft_big_permuted, ifft_big,
+                                              ifft_big_from_permuted,
+                                              natural_to_big_permuted)
 from pragma_dsp_tpu_torch.ops.pfb_cuda import (pfb_channelize_plain,
                                                pfb_channelize_steps, pfb_tap_table)
 from pragma_dsp_tpu_torch.stream import frame_signal, spectrogram_amplitude
@@ -359,7 +360,29 @@ def test_k7_on_cuda(dev, batch, n, m):
     assert torch.equal(out[0], folded[0]) and torch.equal(out[1], folded[1])
 
 
-@pytest.mark.parametrize("bits", [16, 20, 21])
+def _launched_once(fn):
+    """fn's result, the kernels it launched, its peak bytes above what was
+    allocated before it, and the device kernels of a profiler trace of it."""
+    for key in fft_cuda.LAUNCHES:
+        fft_cuda.LAUNCHES[key] = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    launched = {k: v for k, v in fft_cuda.LAUNCHES.items() if v}
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return out, launched, peak, kernels
+
+
+# 2^24 is the widest row stage turned inside K2 (n1b = 4096), 2^25 the
+# first that keeps the transpose (n1b = 8192)
+@pytest.mark.parametrize("bits", [16, 20, 21, 24, 25])
 def test_big_path_on_cuda(dev, bits):
     n = 1 << bits
     rng = np.random.default_rng(bits)
@@ -383,6 +406,59 @@ def test_big_path_on_cuda(dev, bits):
     auto = dispatch.fft(x)
     assert np.array_equal(np.stack([auto.real.cpu().numpy(), auto.imag.cpu().numpy()]), got)
     assert torch.equal(x.real.cpu(), torch.from_numpy(z.real))     # not donated
+    # natural order: K2's turned store and load, the same bits as the
+    # permuted route and the transpose, two launches, no copy kernel, and
+    # no more memory
+    def permuted_then_transpose():
+        q = fft_big_permuted(x)
+        return ComplexArray(big_permuted_to_natural(q.real, n2b, n1b),
+                            big_permuted_to_natural(q.imag, n2b, n1b))
+
+    def transpose_then_permuted():
+        q = ComplexArray(natural_to_big_permuted(x.real, n2b, n1b),
+                         natural_to_big_permuted(x.imag, n2b, n1b))
+        return ifft_big_from_permuted(q, donate=True)
+
+    turned = n1b <= fft_cuda.MAX_TURNED_N
+    for new, old in ((lambda: fft_big(x), permuted_then_transpose),
+                     (lambda: ifft_big(x), transpose_then_permuted)):
+        want, _, old_peak, _ = _launched_once(old)
+        out, launched, peak, kernels = _launched_once(new)
+        assert torch.equal(out.real, want.real) and torch.equal(out.imag, want.imag)
+        assert launched == {"fft_cols": 1, "fft_rows": 1}
+        assert peak <= old_peak
+        if turned:
+            assert kernels and all("fft_cols_kernel" in k or "fft_rows_kernel" in k
+                                   for k in kernels), kernels
+    assert torch.equal(x.real.cpu(), torch.from_numpy(z.real))     # not written
+
+
+def test_row_k2_unchanged_beside_the_turned_store(dev):
+    """The row instance of K2 at [16384, 1024], the flagship shape, is the
+    turned store's result transposed back, bit for bit, and agrees with
+    its plain version (>= 105 dB) and its step-by-step version in float64
+    (>= 125 dB)."""
+    rng = np.random.default_rng(16384)
+    re = torch.from_numpy(rng.standard_normal((16384, 1024)).astype(np.float32)).to(dev)
+    im = torch.from_numpy(rng.standard_normal((16384, 1024)).astype(np.float32)).to(dev)
+    for inverse in (False, True):
+        rows = fft_cuda.fft_rows_cuda(re, im, inverse)
+        store = fft_cuda.fft_rows_turned_cuda(re.view(16, 1024, 1024),
+                                              im.view(16, 1024, 1024), inverse)
+        load = fft_cuda.fft_rows_turned_cuda(re.view(16, 1024, 1024).transpose(1, 2),
+                                             im.view(16, 1024, 1024).transpose(1, 2),
+                                             inverse, load=True)
+        for k in range(2):
+            assert torch.equal(store[k].transpose(1, 2).reshape(16384, 1024), rows[k])
+            assert torch.equal(load[k].reshape(16384, 1024), rows[k])
+        plain = fft_cuda.fft_rows_plain(re, im, inverse)
+        assert _dev_snr(plain, rows) >= 105.0
+        steps = fft_cuda.fft_rows_steps(re[:512].double(), im[:512].double(), inverse)
+        assert _dev_snr(steps, (rows[0][:512], rows[1][:512])) >= 125.0
+    with pytest.raises(ValueError, match="turned row FFT kernel takes"):
+        fft_cuda.fft_rows_turned_cuda(re.view(16384, 8, 128), im.view(16384, 8, 128))
+    with pytest.raises(ValueError, match="turned row FFT kernel takes"):    # 4 rows wide
+        fft_cuda.fft_rows_turned_cuda(re[:8].view(2, 4, 1024), im[:8].view(2, 4, 1024))
 
 
 def test_dispatch_axes_on_cuda(dev):

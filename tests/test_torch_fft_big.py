@@ -1,6 +1,8 @@
 """The large-FFT path of the port on the CPU: K7's plain version against
 the JAX column kernel run in interpret mode, ``ops.fft_big`` against the
-JAX module after each side's ``big_permuted_to_natural``, the split, the
+JAX module after each side's ``big_permuted_to_natural``, the natural-order
+route through K2's turned instances against the permuted route and its
+transpose (bit for bit), the turned instances' addressing, the split, the
 inter-stage grids, the dispatch policy table, the four-step FFT, and the
 entries that route through them above 16384 points.
 
@@ -296,6 +298,131 @@ def test_fft_big_does_not_write_its_input_unless_donated():
     assert torch.equal(z.real, keep)
     with pytest.raises(ValueError, match="unknown precision"):
         pbig.fft_big(z, precision="fp8")
+
+
+# ── natural order through K2's turned instances ─────────────────────
+
+
+def _natural_by_transpose(p):
+    """The permuted route's result, transposed to natural order."""
+    n2b, n1b = p.real.shape[-2:]
+    return (pbig.big_permuted_to_natural(p.real, n2b, n1b),
+            pbig.big_permuted_to_natural(p.imag, n2b, n1b))
+
+
+@pytest.mark.parametrize("bits", [16, 17])       # (n2b, n1b) = (256, 256), (256, 512)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_natural_order_equals_the_permuted_route_and_its_transpose(bits, dtype):
+    """fft_big is bit for bit fft_big_permuted then big_permuted_to_natural,
+    and ifft_big natural_to_big_permuted then ifft_big_from_permuted; the
+    split (256, 512) is not square, so a swapped index map would fail."""
+    n = 1 << bits
+    n2b, n1b = pbig.big_split(n)
+    z = _pca(_cx((2, n), np.complex128))
+    z = ComplexArray(z.real.to(dtype), z.imag.to(dtype))
+    keep = z.real.clone()
+    want = _natural_by_transpose(pbig.fft_big_permuted(z))
+    got = pbig.fft_big(z)
+    assert got.real.shape == (2, n) and got.real.dtype == dtype
+    assert torch.equal(got.real, want[0]) and torch.equal(got.imag, want[1])
+    old = pbig.ifft_big_from_permuted(
+        ComplexArray(pbig.natural_to_big_permuted(z.real, n2b, n1b),
+                     pbig.natural_to_big_permuted(z.imag, n2b, n1b)), donate=True)
+    back = pbig.ifft_big(z)
+    assert back.real.shape == (2, n)
+    assert torch.equal(back.real, old.real) and torch.equal(back.imag, old.imag)
+    assert torch.equal(z.real, keep)
+    one = pbig.fft_big(ComplexArray(z.real[1], z.imag[1]))      # one row, no batch axis
+    assert one.real.shape == (n,) and torch.equal(one.real, want[0][1])
+
+
+@pytest.mark.parametrize("shape,load", [((2, 24, 256), False), ((2, 256, 24), True),
+                                        ((1, 8, 4096), False), ((3, 512, 16), True)])
+def test_turned_rows_plain_is_the_row_fft_and_a_transpose(shape, load):
+    """On a CPU tensor the turned wrapper is its plain version: the row FFT
+    then the transpose (the turned store), or the transpose then the row
+    FFT (the turned load), forward and inverse."""
+    z = _cx(shape)
+    re, im = torch.from_numpy(z.real.copy()), torch.from_numpy(z.imag.copy())
+    for inverse in (False, True):
+        got = fft_cuda.fft_rows_turned_cuda(re, im, inverse, load)
+        assert all(g.is_contiguous() for g in got)
+        src = (re.transpose(1, 2), im.transpose(1, 2)) if load else (re, im)
+        n = src[0].shape[-1]
+        rows = fft_cuda.fft_rows_plain(src[0].reshape(-1, n), src[1].reshape(-1, n), inverse)
+        rows = tuple(r.reshape(src[0].shape) for r in rows)
+        want = rows if load else tuple(r.transpose(1, 2) for r in rows)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        oracle = np.fft.ifft if inverse else np.fft.fft
+        ref = oracle(z.astype(np.complex128), axis=1 if load else 2).transpose(0, 2, 1)
+        assert snr_db(np.stack([ref.real, ref.imag]), _planes(ComplexArray(*got))) > 115
+
+
+def test_turned_rows_input_rules():
+    with pytest.raises(ValueError, match="fft_rows_turned takes"):
+        fft_cuda.fft_rows_turned_cuda(torch.zeros(8, 256), torch.zeros(8, 256))
+    with pytest.raises(ValueError, match="fft_rows_turned takes"):
+        fft_cuda.fft_rows_turned_cuda(torch.zeros(1, 8, 256), torch.zeros(1, 8, 128))
+    with pytest.raises(ValueError, match="power of two"):
+        fft_cuda.fft_rows_turned_cuda(torch.zeros(1, 8, 384), torch.zeros(1, 8, 384))
+    with pytest.raises(ValueError, match="power of two"):
+        fft_cuda.fft_rows_turned_cuda(torch.zeros(1, 384, 8), torch.zeros(1, 384, 8),
+                                      load=True)
+
+
+def _turned_accesses(n):
+    """For each q, K2's turned side as csrc/fft_rows.cu addresses it, for a
+    block of turn_rows(n) rows at j0 = 0 of an item of cols = 2 * G
+    columns: (thread, staging word, device word) of every thread."""
+    g_rows = fft_cuda.turn_rows(n)
+    threads = g_rows * (n // fft_cuda.points_per_thread(n))
+    stride = n + 32 // g_rows
+    cols = 2 * g_rows
+    i = np.arange(threads)
+    g, k = i % g_rows, i // g_rows
+    kstep = threads // g_rows
+    return [(i, g * stride + k + q * kstep, (k + q * kstep) * cols + g)
+            for q in range(fft_cuda.points_per_thread(n))], g_rows, stride, cols
+
+
+@pytest.mark.parametrize("n", [256, 512, 1024, 2048, 4096])
+def test_turned_side_is_conflict_free_and_sector_whole(n):
+    """The turned side of a block: each warp's 32 staging words lie in 32
+    banks; in device memory it touches runs of G consecutive words that
+    start at a multiple of G (8 words: one 32-byte sector whole); over the
+    block's q every point of every row is touched once, and the staging
+    fits the exchange (n + n/32 words a row)."""
+    accesses, g_rows, stride, cols = _turned_accesses(n)
+    assert stride <= n + n // 32
+    staged, touched = [], []
+    for i, word, at in accesses:
+        for w in range(0, len(i), 32):
+            assert len(set(word[w:w + 32] % 32)) == 32
+            runs = np.sort(at[w:w + 32]).reshape(-1, g_rows)
+            assert (runs[:, 0] % g_rows == 0).all()
+            assert (np.diff(runs, axis=1) == 1).all()
+        staged.append(word)
+        touched.append(at)
+    staged, touched = np.concatenate(staged), np.concatenate(touched)
+    rows, points = np.divmod(staged, stride)
+    assert sorted(zip(rows, points)) == [(r, k) for r in range(g_rows) for k in range(n)]
+    assert sorted(touched % cols) == sorted(np.repeat(np.arange(g_rows), n))
+    assert len(set(touched)) == g_rows * n
+
+
+def test_turned_instances_match_the_host_rules():
+    """csrc/fft_rows.cu instantiates the turned store and load for n = 2^8
+    to 2^12 with the host's rows a block; fft_big turns its row stage up
+    to the widest of them and keeps the transpose above."""
+    text = (fft_cuda._build.CSRC / "fft_rows.cu").read_text()
+    assert "kTurnMinLog2N = 8, kTurnMaxLog2N = 12" in text
+    assert fft_cuda.MIN_TURNED_N == 1 << 8 and fft_cuda.MAX_TURNED_N == 1 << 12
+    assert "return threads * 8 <= 1024 ? 8 : 1024 / threads;" in text
+    assert [fft_cuda.turn_rows(1 << b) for b in range(8, 13)] == [8, 8, 8, 8, 4]
+    for bits in range(16, 27):
+        n2b, n1b = pbig.big_split(1 << bits)
+        if n1b <= fft_cuda.MAX_TURNED_N:
+            assert n2b % fft_cuda.turn_rows(n1b) == 0
 
 
 # ── dispatch ─────────────────────────────────────────────────────────
