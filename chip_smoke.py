@@ -23,7 +23,8 @@ Phases (one line each; any failed gate exits non-zero):
      48 kHz audio): the default (bench.py's own call), K1, K4, K3 and
      float64 routes against float64 numpy, K4 bit-equal to K1 (there and at
      every n from 256 to 16384 with hop 128, n/4 and n, an odd number of
-     frames, and against its step-by-step version), the stft -> istft
+     frames, rows of an odd and an even length, and against its
+     step-by-step version), the stft -> istft
      roundtrip and the streaming carry;
   8. K3 at small n against float64 numpy and its plain version, and at every
      power of two from 2 to 16384 (two-sided, a batch that leaves a block
@@ -662,16 +663,20 @@ def main() -> int:
     k4_all = {}
     for n in K1_ALL_N:
         for hop in sorted({128, max(128, n // 4), n}):     # hop is a multiple of 128
-            length = n + (K4_ALL_FRAMES - 1) * hop + 17      # 7 frames, a dropped tail
-            sig_n = torch.randn((3, length), device=dev,
-                                generator=torch.Generator(device=dev).manual_seed(SEED + n + hop))
-            a4, p4 = fft_cuda.framed_spectrum_amp_phase_cuda(sig_n, n, hop, "hann")
-            a1, p1 = fft_cuda.spectrum_amp_phase_cuda(
-                frame_signal(sig_n, n, hop).contiguous(), n, "hann")
+            # 7 frames and a dropped tail: rows of an odd length (frames read
+            # as words), then of an even one (as 8-byte pairs)
+            for tail in (17, 20):
+                length = n + (K4_ALL_FRAMES - 1) * hop + tail
+                sig_n = torch.randn((3, length), device=dev, generator=torch.Generator(
+                    device=dev).manual_seed(SEED + n + hop + tail))
+                a4, p4 = fft_cuda.framed_spectrum_amp_phase_cuda(sig_n, n, hop, "hann")
+                a1, p1 = fft_cuda.spectrum_amp_phase_cuda(
+                    frame_signal(sig_n, n, hop).contiguous(), n, "hann")
+                gate(a4.shape == (3, K4_ALL_FRAMES, n // 2 + 1)
+                     and torch.equal(a4, a1) and torch.equal(p4, p1),
+                     f"K4 n={n} hop={hop} tail {tail}: differs from K1 on the "
+                     "materialised frames")
             sa, _ = fft_cuda.framed_spectrum_amp_phase_steps(sig_n.double(), n, hop, "hann")
-            gate(a4.shape == (3, K4_ALL_FRAMES, n // 2 + 1)
-                 and torch.equal(a4, a1) and torch.equal(p4, p1),
-                 f"K4 n={n} hop={hop}: differs from K1 on the materialised frames")
             k4_all[(n, hop)] = dev_snr_db((sa,), (a4,))
             gate(k4_all[(n, hop)] >= STEPS_GATE_DB,
                  f"K4 n={n} hop={hop}: vs steps {k4_all[(n, hop)]:.1f} dB")
@@ -681,7 +686,8 @@ def main() -> int:
                                                              "hann")[0]),
          "K4 on a signal that is not 8-byte aligned differs from its aligned copy")
     say(f"[7] K4 == K1 (bit-equal, amp and phase) at every n with hop 128, n/4, n, "
-        f"{K4_ALL_FRAMES} frames x 3 signals; K4 vs its step-by-step version in float64 "
+        f"{K4_ALL_FRAMES} frames x 3 signals, rows of an odd and an even length; K4 vs "
+        f"its step-by-step version in float64 "
         f"(gate >= {STEPS_GATE_DB}): "
         + ", ".join(f"{n}/{hop} {v:.1f}" for (n, hop), v in k4_all.items())
         + "; an unaligned signal equals its aligned copy")

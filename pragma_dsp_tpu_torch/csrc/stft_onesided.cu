@@ -9,15 +9,18 @@
 // own offset, and the rest is K1's per-frame body (onesided.cuh), so K4 is
 // bit-equal to K1 on materialised frames.
 //
-// What bounds it on an H100: device memory. At n = 4096, hop = 1024 a frame
-// brings 4 KiB of new samples and writes 8 KiB of amplitude (16 KiB with
-// phase); the transform between is the packed real n/2-point register core
-// (n/32 threads a frame; blocks of at least 128 threads take consecutive
-// frames). Neighbouring frames overlap n/hop-fold. Each frame re-reads its
-// whole span rather than sharing it within the block: frames are
-// consecutive in blockIdx.x, the blocks in flight at one time cover a few
-// MB of the signal, and the re-reads hit the 50 MB L2, while sharing would
-// tie the block's shape to n/hop and break the one body K1 and K4 share.
+// What bounds it on an H100. The bytes set the bound (n = 4096, hop = 1024:
+// 4 KiB of new samples and 8 KiB of amplitude a frame), but the time goes to
+// the frames an SM keeps in flight and their work on the SM. At config 2's
+// width (scripts/k4_split.py, PERF.md) the transform alone (no signal read,
+// no store) takes 0.50 of the 0.57 ms a call, frames read from shared
+// memory instead of the signal save 0.06, and the same kernel held to 6
+// blocks an SM instead of 9 takes 0.76. So each frame re-reads its whole
+// span, which the 50 MB L2 serves, and a block row takes one frame: a
+// segment walk that shares the overlap through a ring in shared memory
+// (scripts/k4_ring_variant.cu) reads the signal about once, but its ring and
+// its registers leave 6 blocks an SM, and it is 29-73% slower at every
+// (n, hop); three frames to a block, sharing their barriers, is 12% slower.
 #include <climits>
 
 #include "onesided.cuh"

@@ -129,11 +129,11 @@ def _use_framed(n_fft: int, hop: int, sides: str,
     ``framed=True`` demands it (ValueError where K4 does not apply),
     ``False`` materialises the frames for K1. ``None`` takes K4 wherever
     :func:`framed_spectrum_supported` holds: on an NVIDIA H100 80GB HBM3 at
-    a 700 W power limit, config 2 at [128, 480000] (n_fft 4096, hop 1024)
-    took 8.0119 ms through K4 against 8.6967 ms for frame_signal + K1, and
-    K4 needs 488.6 MB above the input where the K1 route needs 1463.8 MB
-    (chip_smoke.py phase 10). K4 is faster and smaller, so no capacity
-    threshold is kept.
+    a 700 W power limit, config 2's amplitude at [128, 480000] (n_fft 4096,
+    hop 1024) took a median 0.5778 ms through K4 against 1.3953 ms for
+    frame_signal + K1 over six alternating rounds, and K4 needs 488.6 MB
+    above the input where the K1 route needs 1463.8 MB (chip_smoke.py
+    phase 10). K4 is faster and smaller, so no capacity threshold is kept.
     """
     if not framed_spectrum_supported(n_fft, hop, sides):
         if framed:

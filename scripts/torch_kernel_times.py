@@ -64,7 +64,9 @@ def main() -> int:
     parser.add_argument("--root", default=".", help="checkout that holds pragma_dsp_tpu_torch/")
     parser.add_argument("--runs", type=int, default=11)
     parser.add_argument("--inner", type=int, default=10)
-    parser.add_argument("--only", default="", help="time only the rows whose name contains this")
+    parser.add_argument("--only", default="",
+                        help="time only the rows whose name contains one of these "
+                             "comma-separated words")
     args = parser.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
@@ -107,7 +109,7 @@ def main() -> int:
         return hashlib.sha256(first.cpu().numpy().tobytes()).hexdigest()[:16]
 
     def report(kernel: str, shape, fn, library=None, with_digest=False) -> None:
-        if args.only not in kernel:
+        if not any(word in kernel for word in args.only.split(",")):
             return
         row = {"kernel": kernel, "shape": list(shape), "ms": timed(fn, False),
                "queued_ms": timed(fn, True)}

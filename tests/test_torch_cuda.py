@@ -195,6 +195,45 @@ def test_k4_on_cuda(dev, n, hop):
     assert np.abs(d).max() <= 1e-4
 
 
+def test_k4_at_config2_width(dev):
+    """K4 at config 2's width ([128, 480000], n = 4096, hop = 1024: 465
+    frames a row), bit-equal to K1 on the materialised frames, one launch,
+    and against its plain version."""
+    n, hop = 4096, 1024
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (128, 480000)).astype(np.float32)).to(dev)
+    before = fft_cuda.LAUNCHES["stft_onesided"]
+    amp, ph = fft_cuda.framed_spectrum_amp_phase_cuda(x, n, hop, "hann")
+    assert fft_cuda.LAUNCHES["stft_onesided"] == before + 1
+    k1_amp, k1_ph = fft_cuda.spectrum_amp_phase_cuda(frame_signal(x, n, hop).contiguous(),
+                                                     n, "hann")
+    assert amp.shape == (128, 465, n // 2 + 1)
+    assert torch.equal(amp, k1_amp) and torch.equal(ph, k1_ph)
+    assert torch.equal(fft_cuda.framed_spectrum_amplitude_cuda(x, n, hop, "hann"), amp)
+    pamp, _ = fft_cuda.framed_spectrum_amp_phase_plain(x[:8], n, hop, "hann")
+    assert _snr(pamp.cpu().numpy(), amp[:8].cpu().numpy()) >= 105.0
+
+
+@pytest.mark.parametrize("offset,extra", [(0, 0), (0, 1), (1, 0), (1, 1)])
+@pytest.mark.parametrize("n", [1024, 4096, 16384])
+def test_k4_frame_starts_on_cuda(dev, n, offset, extra):
+    """Frames read as 8-byte pairs (an aligned signal, rows of an even
+    length) and as words (a signal one word off, rows of an odd length),
+    bit-equal to K1 on the materialised frames at hop 128, n/4 and n."""
+    rng = np.random.default_rng(n + offset + extra)
+    for hop in sorted({128, n // 4, n}):
+        length = n + 10 * hop + 20 + extra
+        buf = torch.from_numpy(rng.standard_normal(3 * length + offset).astype(
+            np.float32)).to(dev)
+        x = buf[offset:].view(3, length)
+        assert x.is_contiguous() and x.data_ptr() % 8 == 4 * offset
+        a4, p4 = fft_cuda.framed_spectrum_amp_phase_cuda(x, n, hop, "hann")
+        a1, p1 = fft_cuda.spectrum_amp_phase_cuda(frame_signal(x, n, hop).contiguous(),
+                                                  n, "hann")
+        assert a4.shape == (3, 11, n // 2 + 1)
+        assert torch.equal(a4, a1) and torch.equal(p4, p1)
+
+
 @pytest.mark.parametrize("batch,n", [(1, 256), (3, 256), (64, 1024), (8, 16384)])
 def test_k5_on_cuda(dev, batch, n):
     rng = np.random.default_rng(batch + n)
