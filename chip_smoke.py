@@ -11,14 +11,24 @@ Phases (one line each; any failed gate exits non-zero):
   3. K1 (one-sided spectrum) against float64 numpy and its plain version,
      and at every n from 256 to 16384 (Hann and rect, a batch that leaves a
      block ragged) against float64 numpy and its step-by-step version in
-     float64;
+     float64; K1's peak instance (spectrum() in one launch) at every n, Hann
+     and rect, on rows of zeros, constants, alternating signs, impulses, a
+     NaN, an +inf, all NaN and values that overflow: its amplitude and phase
+     bit-equal to the amp+phase instance, its peak fields bit-equal to
+     find_peak and to the step-by-step reduction on its own amplitude and
+     phase, its axis torch.equal to bin_frequencies;
   4. K2 (row FFT) against float64 numpy, its roundtrip and its plain
      version, and forward and inverse at every power of two from 2 to 16384
      against float64 numpy and its step-by-step version in float64;
   5. the main path: spectrum() of a numpy array and the flagship step of
      entry() with no device named (host input lands on the card), with
-     launch counts;
-  6. kernel and plain-version times with CUDA events;
+     launch counts; one spectrum() call on the card launches K1's peak
+     instance and nothing else (the launch counters, and the device
+     operations torch.profiler records in a process of its own, which also
+     takes phase 22's traces);
+  6. kernel and plain-version times with CUDA events; spectrum() end to end
+     beside K1's peak instance and its amp+phase instance alone, pipelined
+     and queued behind a device spin, and the host time of one call;
   7. config 2 (bench.py's 4096-point 75%-overlap spectrogram of 10 s of
      48 kHz audio): the default (bench.py's own call), K1, K4, K3 and
      float64 routes against float64 numpy, K4 bit-equal to K1 (there and at
@@ -76,7 +86,8 @@ Phases (one line each; any failed gate exits non-zero):
      movedim + K2;
  18. each kernel's time beside its bound (bytes over 3.35 TB/s or operations
      over 67 TFLOP/s, whichever is larger; K1, K3 and K4 counted as real-input
-     transforms), its plain version and the library; K6's blocked store
+     transforms; K1 as the main path launches it, its peak instance, and its
+     amp+phase instance beside it), its plain version and the library; K6's blocked store
      beside its own bound, and K2's turned store and load on the large
      FFT's rows beside theirs;
  19. config 3, the polyphase resampler (no kernel of K1-K7 on its path):
@@ -112,10 +123,12 @@ Phases (one line each; any failed gate exits non-zero):
      timed beside it (median and spread, peak MB); dist_fft by chunk depth
      (optimal_chunks' per-chunk cost); dryrun_multichip();
  22. utils/ on the card: the device idle share of spectrum() and of the
-     flagship step through profiling.trace, a BenchContext section,
+     flagship step through profiling.trace (traced in phase 5's process of
+     its own), a BenchContext section,
      save_state/restore_state of a PfbState on the card, and sanitizer_mode
-     (every kernel wrapper launches its kernel once inside it, as outside,
-     with the same result; a NaN from a torch operation raises there).
+     (every kernel wrapper, K1's peak entry too, launches its kernel once
+     inside it, as outside, with the same result; a NaN from a torch
+     operation raises there).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -138,6 +151,7 @@ K2_SHAPES = (MAIN, (16384, 128), (1024, 16384))
 GATE_DB = 105.0          # bench.py headline, roundtrip and config-2 gates
 SMALL_N_GATE_DB = 120.0  # bench.py small-n FFT gate
 PHASE_TOL = 1e-4         # rad, where amp > 1e-3 (tests/test_pallas_fft.py)
+HOST_CALLS = 50          # calls in phase 6's host-time loop, behind a device spin
 STEPS_GATE_DB = 125.0    # a kernel against its step-by-step version in float64
 ALL_BATCH = 37           # the every-n sweeps: no multiple of the rows a block takes
 K2_ALL_N = tuple(1 << k for k in range(1, 15))    # every plan of the row FFT
@@ -421,6 +435,65 @@ def main() -> int:
         + ", ".join(f"{n} {w} {a:.1f}/{b:.1f}" for (n, w), (a, b) in k1_all.items())
         + "; edge phases exactly 0 or +pi; amplitude-only equal")
 
+    # K1's peak instance: the fields against find_peak on its own amplitude
+    # and phase, bit for bit (int32 views: NaN rows compare too)
+    from pragma_dsp_tpu_torch.public.spectrum import find_peak
+    from pragma_dsp_tpu_torch.xform import bin_frequencies
+
+    bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t  # noqa: E731
+    same = lambda a, b: a.shape == b.shape and torch.equal(bits(a), bits(b))  # noqa: E731
+    peak_seen = {"rows": 0, "ties": 0, "nan": 0, "index 0": 0, "Nyquist": 0}
+    for n in K1_ALL_N:
+        x = np.random.default_rng(SEED + 7 * n).standard_normal((ALL_BATCH, n)).astype(np.float32)
+        alt = (-1.0) ** np.arange(n)
+        x[1] = 0.0
+        x[2] = 1.0
+        x[3] = alt
+        x[4] = 0.0
+        x[4, 0] = 1.0
+        x[5] = 0.0
+        x[5, 1] = 1.0
+        x[6, 5] = np.nan
+        x[7, n // 2] = np.inf
+        x[8] = np.nan
+        x[9] = 3e38 * alt
+        x[10] = 3e38
+        x[11] = 3e38 * np.sin(np.arange(n))
+        xd = cuda(x)
+        for window in ("hann", "rect"):
+            freqs, amp, ph, idx, pfreq, pamp, pph = fft_cuda.spectrum_peak_cuda(
+                xd, n, window, SR)
+            a2, p2 = fft_cuda.spectrum_amp_phase_cuda(xd, n, window)
+            torch.cuda.synchronize()
+            axis = bin_frequencies(n, SR, "one", dtype=torch.float32, device=dev)
+            ref = find_peak(amp, axis)
+            rph = torch.take_along_dim(ph, ref.index[:, None], dim=-1)[:, 0]
+            steps = fft_cuda.spectrum_peak_steps(amp, ph, n, SR)
+            where = f"K1 peak instance {n} {window}"
+            gate(same(amp, a2) and same(ph, p2),
+                 f"{where}: amplitude or phase differs from the amp+phase instance")
+            gate(torch.equal(freqs, axis), f"{where}: axis differs from bin_frequencies")
+            gate(idx.dtype == torch.int64 and torch.equal(idx, ref.index)
+                 and same(pfreq, ref.frequency) and same(pamp, ref.amplitude)
+                 and same(pph, rph),
+                 f"{where}: peak differs from find_peak: {host(idx).tolist()} vs "
+                 f"{host(ref.index).tolist()}")
+            gate(all(same(a, b) for a, b in zip(steps, (idx, pfreq, pamp, pph))),
+                 f"{where}: peak differs from its step-by-step reduction")
+            non_dc = amp[:, 1:]
+            top = non_dc.max(dim=-1, keepdim=True).values
+            peak_seen["rows"] += ALL_BATCH
+            peak_seen["ties"] += int(((non_dc == top).sum(dim=-1) > 1).sum())
+            peak_seen["nan"] += int(torch.isnan(amp).any(dim=-1).sum())
+            peak_seen["index 0"] += int((idx == 0).sum())
+            peak_seen["Nyquist"] += int((idx == n // 2).sum())
+    say(f"[3] K1 peak instance [{ALL_BATCH}, n] at every n, Hann and rect: amplitude and phase "
+        "bit-equal to the amp+phase instance, index/frequency/amplitude/phase bit-equal to "
+        "find_peak and to the step-by-step reduction on its own output, axis equal to "
+        f"bin_frequencies; rows {peak_seen['rows']}: {peak_seen['ties']} with a tied non-DC "
+        f"maximum, {peak_seen['nan']} with a NaN bin, {peak_seen['index 0']} peaks at DC, "
+        f"{peak_seen['Nyquist']} at Nyquist")
+
     # 4. K2 against float64, its roundtrip and its plain version
     k2 = {}
     for batch, n in K2_SHAPES:
@@ -535,6 +608,26 @@ def main() -> int:
          f"flagship entry batch: SNR {s_entry:.1f} dB or wrong peaks {host(e_idx)}")
     say("[5] host input: spectrum(numpy array) and entry() with no device named ran on "
         f"{r.amplitude.device} and launched K1 and K2")
+    # one call of the card's tensor: K1's peak instance and nothing else
+    for key in fft_cuda.LAUNCHES:
+        fft_cuda.LAUNCHES[key] = 0
+    r1 = spectrum(xd, sample_rate=SR, window="hann")
+    torch.cuda.synchronize()
+    one = {k: v for k, v in fft_cuda.LAUNCHES.items() if v}
+    gate(one == {"spectrum_onesided": 1}, f"spectrum() launched {one}, not K1 once")
+    gate(torch.equal(r1.amplitude, r.amplitude) and torch.equal(r1.peak.index, r.peak.index),
+         "spectrum() differs between calls")
+    # traced in a process of its own (main_traced), with phase 22's traces
+    traced = subprocess.run([sys.executable, os.path.abspath(__file__), "--main-traced"],
+                            capture_output=True, text=True, timeout=600)
+    gate(traced.returncode == 0, f"the traced calls failed:\n{traced.stderr[-2000:]}")
+    traces = json.loads(traced.stdout.strip().splitlines()[-1])
+    names = [k for k, _ in traces["spectrum() one call"]["device"]]
+    gate(len(names) == 1 and "spectrum_onesided_kernel" in names[0],
+         f"spectrum() {list(MAIN)} ran other device work than one K1: {names}")
+    say(f"[5] spectrum() {list(MAIN)} on the card: launches {one}; traced in a process of its "
+        f"own: {len(names)} device operation ({names[0][:60]})")
+    del r1
     say(f"[5] spectrum() {list(MAIN)}: peak bin 32 at 1500.0 Hz in every row, "
         f"SNR vs f64 {s_main:.1f} dB; flagship step vs spectrum() {s_flag:.1f} dB; "
         f"entry batch vs f64 {s_entry:.1f} dB, peaks {host(e_idx).tolist()}")
@@ -590,6 +683,37 @@ def main() -> int:
                "flagship step": timed(lambda: step(xd))}
     say(f"[6] end to end {list(MAIN)} on {name} ({card}), pipelined (5 calls a window): "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in path_ms.items()))
+
+    def host_ms(fn) -> float:
+        """The host's time of one call: a loop of HOST_CALLS calls behind a
+        device spin long enough that no call waits for the card, on a CPU
+        timer, then a synchronise."""
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(4 * SPIN_CYCLES)
+        t0 = time.perf_counter()
+        for _ in range(HOST_CALLS):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (t1 - t0) * 1e3 / HOST_CALLS
+
+    main_calls = {
+        "spectrum()": lambda: spectrum(xd, sample_rate=SR, window="hann"),
+        "K1 peak instance (spectrum_peak_cuda)":
+            lambda: fft_cuda.spectrum_peak_cuda(xd, MAIN[1], "hann", SR),
+        "K1 amp+phase instance": lambda: fft_cuda.spectrum_amp_phase_cuda(xd, MAIN[1], "hann"),
+        "plain (spectrum_peak_plain)":
+            lambda: fft_cuda.spectrum_peak_plain(xd, MAIN[1], "hann", SR)}
+    main_ms = {}
+    for label, fn in main_calls.items():
+        # the plain version's many launches would fill the queue: no host time
+        main_ms[label] = (timed(fn), timed(fn, queued=True),
+                          None if label.startswith("plain") else host_ms(fn))
+        say(f"[6] {label} {list(MAIN)} on {name} ({card}): {main_ms[label][0]:.4f} ms "
+            f"pipelined, {main_ms[label][1]:.4f} ms queued behind a device spin"
+            + ("" if main_ms[label][2] is None
+               else f", host {main_ms[label][2]:.4f} ms a call"))
 
     # 7. config 2: the spectrogram routes against float64 numpy
     sig = config2_signal()
@@ -1691,9 +1815,11 @@ def main() -> int:
     frames6 = C5_WIDE // c                            # K6's frames
     kb = BIG_BATCH * n2b * n1b                        # K7's points
     bounds = {
+        # the main path's instance: amplitude, phase, a frame's peak (int64
+        # index, three floats) and the axis; 5 operations a bin for the rule
         "spectrum_onesided": bound(
-            4 * b1 * n1 + 8 * b1 * (n1 // 2 + 1) + 12 * n1,
-            b1 * (real_fft_flops(n1) + n1 + 6 * (n1 // 2 + 1))),
+            4 * b1 * n1 + 8 * b1 * (n1 // 2 + 1) + 20 * b1 + 4 * (n1 // 2 + 1) + 12 * n1,
+            b1 * (real_fft_flops(n1) + n1 + 11 * (n1 // 2 + 1))),
         "fft_rows": bound(16 * b1 * n1 + 8 * n1, b1 * fft_flops(n1)),
         "spectrum_twosided": bound(8 * rows3 * C2_N + 12 * C2_N,
                                    rows3 * (real_fft_flops(C2_N) + C2_N
@@ -1714,7 +1840,9 @@ def main() -> int:
     for kname, src, replaces, err, (ms, pms), count, library_ms in (
             ("spectrum_onesided", "spectrum_onesided.cu",
              "pragma_dsp_tpu/ops/fft_pallas.py:1158", k1[MAIN]["err"],
-             times[("spectrum_onesided", *MAIN)], launches["spectrum_onesided"], None),
+             main_ms["K1 peak instance (spectrum_peak_cuda)"][:1]
+             + main_ms["plain (spectrum_peak_plain)"][:1],
+             launches["spectrum_onesided"], None),
             ("fft_rows", "fft_rows.cu", "pragma_dsp_tpu/ops/fft_pallas.py:338",
              k2[MAIN]["err"], times[("fft_rows", *MAIN)], launches["fft_rows"],
              k2_library_ms),
@@ -1755,6 +1883,17 @@ def main() -> int:
             f"({100 * bound_ms / ms:.1f}% of the time), plain {pms:.4f} ms, library "
             + ("none" if library_ms is None else f"{library_ms:.4f} ms")
             + f", launches on its path {count}")
+    # K1's amp+phase instance beside the peak instance the main path runs
+    ms, pms = times[("spectrum_onesided", *MAIN)]
+    bound_ms, bound_by = bound(4 * b1 * n1 + 8 * b1 * (n1 // 2 + 1) + 12 * n1,
+                               b1 * (real_fft_flops(n1) + n1 + 6 * (n1 // 2 + 1)))
+    say(f"[18] spectrum_onesided, amp+phase instance {list(MAIN)}: {ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms by {bound_by} ({100 * bound_ms / ms:.1f}% of the time), plain "
+        f"{pms:.4f} ms; queued: peak instance "
+        f"{main_ms['K1 peak instance (spectrum_peak_cuda)'][1]:.4f} ms "
+        f"({100 * bounds['spectrum_onesided'][0] / main_ms['K1 peak instance (spectrum_peak_cuda)'][1]:.1f}% "
+        f"of its bound), amp+phase {main_ms['K1 amp+phase instance'][1]:.4f} ms "
+        f"({100 * bound_ms / main_ms['K1 amp+phase instance'][1]:.1f}%)")
     # K6's blocked store: the frames past the history are transformed and
     # written; every input frame is read
     stored = frames6 - K6_SKIP
@@ -2009,7 +2148,6 @@ def main() -> int:
     # 21. parallel/ on the card: a 1-rank NCCL group. Every entry at full
     # width, counted one call at a time, against float64 and against the
     # direct op on the same card, and timed beside it.
-    import shutil
     import socket
     import tempfile
 
@@ -2265,37 +2403,24 @@ def main() -> int:
     # a BenchContext section, a checkpoint of a carry on the card, and
     # sanitizer_mode (NaN checks on, every kernel still launching).
     from pragma_dsp_tpu_torch.ops import pfb_channelize_step, pfb_stream_init
-    from pragma_dsp_tpu_torch.utils import (BenchContext, device_idle_share, restore_state,
-                                            sanitizer_mode, save_state)
-    from pragma_dsp_tpu_torch.utils import profiling
+    from pragma_dsp_tpu_torch.utils import (BenchContext, restore_state, sanitizer_mode,
+                                            save_state)
 
     x_main = k1[MAIN]["x"]
-    flag_step, _ = entry()
-    trace_root = tempfile.mkdtemp(prefix="chip_smoke_traces_")
-    for key, fn in (("spectrum()", lambda: spectrum(x_main, sample_rate=SR, window="hann")),
-                    ("flagship step", lambda: flag_step(x_main))):
+    for key in ("spectrum()", "flagship step"):
         label = f"{key} {list(MAIN)}"
-        fn()
-        torch.cuda.synchronize()
-        with profiling.trace(os.path.join(trace_root, label.split()[0].strip("()"))) as log_dir:
-            for _ in range(IDLE_CALLS):
-                fn()
-        with open(os.path.join(log_dir, profiling.TRACE_FILE)) as f:
-            events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
         kern = {}
-        for e in events:
-            if e.get("cat") == "kernel":
-                kern[e["name"][:48]] = kern.get(e["name"][:48], 0.0) + float(e["dur"])
+        for k, us in traces[key]["device"]:
+            kern[k[:48]] = kern.get(k[:48], 0.0) + us
         gate(bool(kern), f"{label}: the profiler recorded no kernel on the card")
-        share = device_idle_share(log_dir)
         top = sorted(kern.items(), key=lambda kv: -kv[1])[:4]
         kern_ms = sum(kern.values()) / 1e3 / IDLE_CALLS
-        say(f"[22] {label}, {IDLE_CALLS} calls traced on {name} ({card}): device idle share "
-            f"{share:.4f} traced; untraced, 1 - its kernels' {kern_ms:.4f} ms over phase 6's "
-            f"pipelined {path_ms[key]:.4f} ms a call = {1 - kern_ms / path_ms[key]:.4f}; "
-            f"{sum(e.get('name') == 'cudaStreamSynchronize' for e in events) / IDLE_CALLS:g} "
-            f"stream synchronisations a call; kernel time {kern_ms:.4f} ms a call in "
-            f"{sum(1 for e in events if e.get('cat') == 'kernel') // IDLE_CALLS} kernels; top: "
+        say(f"[22] {label}, {IDLE_CALLS} calls traced (phase 5's process) on {name} ({card}): "
+            f"device idle share {traces[key]['idle_share']:.4f} traced; untraced, 1 - its device "
+            f"operations' {kern_ms:.4f} ms over phase 6's pipelined {path_ms[key]:.4f} ms a call "
+            f"= {1 - kern_ms / path_ms[key]:.4f}; {traces[key]['syncs'] / IDLE_CALLS:g} stream "
+            f"synchronisations a call; {len(traces[key]['device']) / IDLE_CALLS:g} device "
+            "operations a call; top: "
             + ", ".join(f"{k} {v / 1e3 / IDLE_CALLS:.4f} ms" for k, v in top))
     ctx = BenchContext(warmup=3, iters=20)
     ctx.time(f"spectrum() {list(MAIN)}", lambda: spectrum(x_main, sample_rate=SR, window="hann"),
@@ -2336,6 +2461,7 @@ def main() -> int:
     fold_s = tuple(cuda(g[:, :256]) for g in _interstage_grids(n, 1024, -1.0))
     calls = (
         ("spectrum_onesided", lambda: fft_cuda.spectrum_amp_phase_cuda(xs_, n, "hann")),
+        ("spectrum_onesided", lambda: fft_cuda.spectrum_peak_cuda(xs_, n, "hann", SR)),
         ("fft_rows", lambda: fft_cuda.fft_rows_cuda(zr, zi)),
         ("spectrum_twosided", lambda: fft_cuda.spectrum_amplitude_cuda(xs_, n, "hann", "two")),
         ("stft_onesided", lambda: fft_cuda.framed_spectrum_amp_phase_cuda(sig, n, 256, "hann")),
@@ -2359,10 +2485,9 @@ def main() -> int:
         except FloatingPointError:
             caught = True
     gate(caught, "sanitizer_mode let a NaN through")
-    say(f"[22] sanitizer_mode on {name}: each of the {len(calls)} kernels launched once inside "
-        "it, as outside, with a torch.equal result; a NaN from a torch operation raised "
-        "FloatingPointError")
-    shutil.rmtree(trace_root, ignore_errors=True)
+    say(f"[22] sanitizer_mode on {name}: each of the {len(calls)} kernel wrappers launched its "
+        "kernel once inside it, as outside, with a torch.equal result; a NaN from a torch "
+        "operation raised FloatingPointError")
     tdist.destroy_process_group()
 
     say(json.dumps({"kernels": kernels}))
@@ -2371,5 +2496,50 @@ def main() -> int:
     return 0
 
 
+def main_traced() -> int:
+    """Phases 5's and 22's traces, the first torch.profiler sessions of a
+    process of their own (one that starts more than a few seconds after an
+    earlier session of the same process records few or no device events on
+    the H100 machines, scripts/profiler_sessions.py). Bench.py's
+    input on the card: one spectrum() call, then IDLE_CALLS calls of
+    spectrum() and of the flagship step, each through profiling.trace;
+    prints one JSON object, for each trace its device events' names and
+    durations, its stream synchronisations and its device idle share."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from pragma_dsp_tpu_torch import spectrum
+    from pragma_dsp_tpu_torch.entry import entry
+    from pragma_dsp_tpu_torch.utils import device_idle_share, profiling
+
+    xd = torch.from_numpy(bench_input(*MAIN)).to(torch.device("cuda", 0))
+    step, _ = entry()
+    runs = (("spectrum() one call", 1, lambda: spectrum(xd, sample_rate=SR, window="hann")),
+            ("spectrum()", IDLE_CALLS, lambda: spectrum(xd, sample_rate=SR, window="hann")),
+            ("flagship step", IDLE_CALLS, lambda: step(xd)))
+    root = tempfile.mkdtemp(prefix="chip_smoke_traces_")
+    out = {}
+    try:
+        for i, (key, calls, fn) in enumerate(runs):
+            fn()
+            torch.cuda.synchronize()
+            with profiling.trace(os.path.join(root, str(i))) as log_dir:
+                for _ in range(calls):
+                    fn()
+            with open(os.path.join(log_dir, profiling.TRACE_FILE)) as f:
+                events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+            out[key] = {
+                "device": [(e["name"], float(e["dur"])) for e in events
+                           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")],
+                "syncs": sum(e.get("name") == "cudaStreamSynchronize" for e in events),
+                "idle_share": device_idle_share(log_dir)}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(json.dumps(out))
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main_traced() if sys.argv[1:] == ["--main-traced"] else main())

@@ -36,6 +36,10 @@ _SIGNATURES = {
     "fft_rows_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, win, amp, ph (nullable), twc, tws, pass table, plan, batch, n, stream
     "spectrum_onesided_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # x, win, amp, ph, axis, index, freq, peak amp, peak ph, twc, tws, pass
+    # table, plan, batch, n, sample_rate / n, stream
+    "spectrum_onesided_peak_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _I, _I, _I, ctypes.c_double, _P],
     # x, win, amp, cos, sin, pass table (nullable), plan, batch, n, stream
     "spectrum_twosided_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # x, win, amp, ph (nullable), twc, tws, pass table, plan, batch, length,

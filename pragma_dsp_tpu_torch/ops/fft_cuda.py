@@ -7,7 +7,9 @@ Counterpart of ``pragma_dsp_tpu/ops/fft_pallas.py``:
   ``_spectrum_onesided_kernel`` + ``_onesided_body``: window -> FFT ->
   one-sided scaled amplitude, optionally phase, natural bin order. The
   real frame is packed into n/2 complex points and untangled
-  (``csrc/onesided.cuh``).
+  (``csrc/onesided.cuh``). Its peak instance (:func:`spectrum_peak_cuda`)
+  also writes each frame's peak by ``find_peak``'s rule and the frequency
+  axis: ``spectrum()`` in one launch.
 * K2 ``fft_rows`` (``csrc/fft_rows.cu``) replaces ``_fft2d_kernel``: a
   batched complex FFT over the last axis, natural order in and out, by the
   register-resident mixed-radix core (``csrc/fft_regs.cuh``) that K1, K3,
@@ -39,8 +41,9 @@ them.
 ``fft_rows_steps``, ``spectrum_amp_phase_steps``,
 ``spectrum_twosided_steps`` and ``fft_cols_steps`` repeat the register
 core's arithmetic step by step in PyTorch (thread, register and
-shared-memory address included): the tests hold them against the JAX
-package here and the kernels against them on the card.
+shared-memory address included), and ``spectrum_peak_steps`` K1's peak
+reduction: the tests hold them against the JAX package here and the
+kernels against them on the card.
 
 Each wrapper takes its plain version only because the tensor it was given
 lies on the CPU. For a CUDA tensor it launches its kernel or raises; there
@@ -55,6 +58,7 @@ runs the same f32 kernels here; a tensor-core mode is later work.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Optional, Tuple
 
@@ -64,7 +68,7 @@ import torch
 from ..core.complex import is_power_of_two, next_power_of_two
 from ..core.device import to_tensor
 from ..core.fft import fft_axis0
-from ..xform.fourier import create_window, window_values
+from ..xform.fourier import bin_frequencies, bin_step, create_window, window_values
 from . import _build
 
 __all__ = [
@@ -78,6 +82,9 @@ __all__ = [
     "spectrum_amplitude_plain",
     "spectrum_amp_phase_cuda",
     "spectrum_amp_phase_plain",
+    "spectrum_peak_cuda",
+    "spectrum_peak_plain",
+    "spectrum_peak_steps",
     "spectrum_twosided_plain",
     "framed_spectrum_supported",
     "framed_spectrum_amplitude_cuda",
@@ -653,6 +660,170 @@ def spectrum_amp_phase_cuda(x, n: int, window: str = "rect",
         raise ValueError(
             f"fused amp+phase needs a power-of-two n > {MAX_DFT_N}, got {n}")
     return _onesided(x, n, window, with_phase=True)
+
+
+# ── K1's peak instance: spectrum() in one launch ─────────────────────
+
+
+def _with_peak(amp: torch.Tensor, ph: torch.Tensor, n: int, sample_rate: float):
+    """The frequency axis and ``find_peak``'s fields of one-sided bins
+    [B, n//2+1] in their dtype: (frequencies, amp, ph, index, frequency,
+    peak amplitude, peak phase)."""
+    from ..public.spectrum import find_peak
+
+    freqs = bin_frequencies(n, sample_rate, "one", dtype=amp.dtype, device=amp.device)
+    peak = find_peak(amp, freqs)
+    peak_ph = torch.take_along_dim(ph, peak.index[..., None], dim=-1)[..., 0]
+    return freqs, amp, ph, peak.index, peak.frequency, peak.amplitude, peak_ph
+
+
+def spectrum_peak_plain(x: torch.Tensor, n: int, window: str, sample_rate: float):
+    """The peak instance's plain version on [B, n] frames, in the input's
+    dtype: :func:`spectrum_amp_phase_plain`, then ``find_peak`` over its
+    amplitude, ``bin_frequencies`` and the phase at the peak. The CPU path
+    and the card's checks."""
+    amp, ph = spectrum_amp_phase_plain(x, n, window)
+    return _with_peak(amp, ph, n, sample_rate)
+
+
+def _peak_beats(av, ak, bv, bk):
+    """``peak_beats`` of csrc/onesided.cuh on tensors: (isnan, value,
+    -index) of a greater than b's."""
+    an, bn = torch.isnan(av), torch.isnan(bv)
+    return torch.where(an != bn, an, torch.where(~an & (av != bv), av > bv, ak < bk))
+
+
+def spectrum_peak_steps(amplitude: torch.Tensor, phase: torch.Tensor, n: int,
+                        sample_rate: float):
+    """K1's peak reduction step by step in PyTorch, for the tests: the
+    amplitudes [B, n//2+1] as the kernel's threads hold them (T = n/32 a
+    frame; register q of thread t is bin t + T*q; thread 0 hands Nyquist
+    over first and keeps DC apart). Each thread's run in its order: a
+    strict > from -inf keeps its first largest bin, a sum flags a NaN, and
+    a thread whose sum is NaN takes its first NaN (Nyquist last); then the
+    xor tree over the lanes of a warp (the frame's T lanes where T < 32),
+    the warps of a frame in order, and DC against the non-DC winner, all by
+    ``peak_beats``. Any values, negative ones too. Returns (index,
+    frequency, amplitude, phase) at the peak, as the kernel writes them."""
+    half = n // 2
+    regs = points_per_thread(half)
+    lanes = half // regs
+    lead = amplitude.shape[:-1]
+    dev = amplitude.device
+    tid = torch.arange(lanes, device=dev)
+    first = tid == 0
+    sentinel = torch.full(lead + (lanes,), 2 ** 31 - 1, device=dev)
+    m = torch.full(lead + (lanes,), -float("inf"), dtype=amplitude.dtype, device=dev)
+    k = sentinel.clone()
+    nyq = torch.where(first, amplitude[..., half:half + 1], m)
+    total = torch.where(first, nyq, torch.zeros_like(m))
+    for q in range(regs):
+        bins = tid + lanes * q
+        cv = amplitude[..., bins]
+        take = cv > m
+        if q == 0:                       # thread 0's DC is kept apart
+            take = take & ~first
+            cv = torch.where(first, torch.zeros_like(cv), cv)
+        total = total + cv
+        m, k = torch.where(take, cv, m), torch.where(take, bins, k)
+    v = m
+    pos = torch.fmax(m, nyq) > 0
+    later = nyq > v
+    v, k = torch.where(later, nyq, v), torch.where(later, half, k)
+    # a thread whose sum is NaN: its first NaN bin, Nyquist last
+    nan_first = torch.where(torch.isnan(nyq), half, sentinel)
+    for q in reversed(range(regs)):
+        bins = tid + lanes * q
+        hit = torch.isnan(amplitude[..., bins]) & (bins != 0)
+        nan_first = torch.where(hit, bins, nan_first)
+    rescan = torch.isnan(total) & (nan_first != sentinel)
+    k = torch.where(rescan, nan_first, k)
+    v = torch.where(rescan, torch.take_along_dim(
+        amplitude, nan_first.clamp(max=half), dim=-1), v)
+    width = min(lanes, 32)
+    o = width // 2
+    while o:
+        partner = tid ^ o
+        ov, ok, opos = v[..., partner], k[..., partner], pos[..., partner]
+        win = _peak_beats(ov, ok, v, k)
+        v, k, pos = torch.where(win, ov, v), torch.where(win, ok, k), pos | opos
+        o //= 2
+    rv, rk, rpos = v[..., 0], k[..., 0], pos[..., 0]
+    for w in range(1, lanes // width):   # a frame's warps through shared memory
+        wv, wk = v[..., w * width], k[..., w * width]
+        win = _peak_beats(wv, wk, rv, rk)
+        rv, rk, rpos = torch.where(win, wv, rv), torch.where(win, wk, rk), rpos | pos[..., w * width]
+    dc = amplitude[..., 0]
+    non_dc = rpos | _peak_beats(rv, rk, dc, torch.zeros_like(rk))
+    index = torch.where(non_dc, rk, torch.zeros_like(rk))
+    freq = (index.to(torch.float64) * bin_step(n, sample_rate)).to(amplitude.dtype)
+    peak_ph = torch.take_along_dim(phase, index[..., None], dim=-1)[..., 0]
+    return index, freq, torch.where(non_dc, rv, dc), peak_ph
+
+
+def _launch_spectrum_peak(x: torch.Tensor, n: int, window: str, sample_rate: float):
+    """One launch of K1's peak instance on [B, n] frames. At bench.py's
+    [16384, 1024] the host's work a call is as long as the kernel on an
+    H100, so the float outputs are views of one allocation, and the device
+    is switched only where the frames lie on another than the current one."""
+    step = bin_step(n, sample_rate)
+    if x.dtype != torch.float32:
+        raise TypeError(f"the one-sided spectrum kernel takes float32, got {x.dtype}")
+    x = x.contiguous()
+    batch, bins = x.shape[0], n // 2 + 1
+    if batch == 0:
+        amp = x.new_empty((0, bins))
+        return _with_peak(amp, torch.empty_like(amp), n, sample_rate)
+    amp, ph, freqs, peak_freq, peak_amp, peak_ph = torch.empty(
+        2 * batch * bins + bins + 3 * batch, dtype=torch.float32, device=x.device,
+    ).split((batch * bins, batch * bins, bins, batch, batch, batch))
+    amp, ph = amp.view(batch, bins), ph.view(batch, bins)
+    index = torch.empty(batch, dtype=torch.int64, device=x.device)
+    lib = _build.library()
+    twc, tws, win = _device_tables(n, window, x.device)
+    tw = _device_pass_twiddles(n // 2, x.device)
+    with (contextlib.nullcontext() if x.device.index == torch.cuda.current_device()
+          else torch.cuda.device(x.device)):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = lib.spectrum_onesided_peak_f32(
+            x.data_ptr(), win.data_ptr(), amp.data_ptr(), ph.data_ptr(),
+            freqs.data_ptr(), index.data_ptr(), peak_freq.data_ptr(),
+            peak_amp.data_ptr(), peak_ph.data_ptr(), twc.data_ptr(), tws.data_ptr(),
+            tw.data_ptr(), _plan_code_of(n // 2), batch, n, step, stream)
+    _build.check(lib, code, "spectrum_onesided")
+    LAUNCHES["spectrum_onesided"] += 1
+    return freqs, amp, ph, index, peak_freq, peak_amp, peak_ph
+
+
+def spectrum_peak_cuda(x, n: int, window: str = "rect", sample_rate: float = 1.0,
+                       precision: Optional[str] = None):
+    """``spectrum()``'s one-sided result of real frames [batch..., n]:
+    (frequencies [n//2+1], amplitude and phase [..., n//2+1], and the peak's
+    index (int64), frequency, amplitude and phase [...]), by the rules of
+    :func:`spectrum_amp_phase_cuda`, ``find_peak`` and ``bin_frequencies``.
+    On CUDA, float32 with n = 256 .. 16384 is one launch of K1's peak
+    instance; a longer frame takes K1's long-frame route and ``find_peak``;
+    a CPU tensor runs :func:`spectrum_peak_plain`. Needs a power-of-two
+    n > 128 (ValueError otherwise)."""
+    x = _frames_of(x, n, precision)
+    if n <= MAX_DFT_N or not is_power_of_two(n):
+        raise ValueError(
+            f"the fused peak spectrum needs a power-of-two n > {MAX_DFT_N}, got {n}")
+    lead = x.shape[:-1]
+    frames = x.reshape(-1, n)
+    if not frames.is_cuda:
+        out = spectrum_peak_plain(frames, n, window, sample_rate)
+    elif n > MAX_ROWS_N:
+        out = _with_peak(*_launch_spectrum_onesided(frames, n, window, True), n,
+                         sample_rate)
+    else:
+        out = _launch_spectrum_peak(frames, n, window, sample_rate)
+    if x.dim() == 2:
+        return out
+    freqs, amp, ph, *peak = out
+    bins = lead + (n // 2 + 1,)
+    return (freqs, amp.reshape(bins), ph.reshape(bins),
+            *(p.reshape(lead) for p in peak))
 
 
 # ── K3: two-sided amplitude ──────────────────────────────────────────

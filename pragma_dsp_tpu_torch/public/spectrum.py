@@ -10,8 +10,10 @@ exact amplitude scaling and peak rule (reference src/public/spectrum.ts):
   argmax over bins[1:]; otherwise the global first argmax (DC included).
 
 One-sided float32 power-of-two sizes above 128 take the fused one-sided
-kernel K1 (its plain version for a CPU tensor); everything else runs
-window -> ``ops.dispatch.fft`` -> hypot/atan2 -> scaling.
+kernel K1's peak instance, which also writes the peak and the frequency
+axis: one launch a call up to 16384 points (its plain version for a CPU
+tensor); everything else runs window -> ``ops.dispatch.fft`` ->
+hypot/atan2 -> scaling, then :func:`find_peak`.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import torch
 from ..core.complex import is_power_of_two, next_power_of_two
 from ..core.device import to_tensor
 from ..ops.dispatch import fft as _fft, get_fft_impl
-from ..ops.fft_cuda import spectrum_amp_phase_cuda
+from ..ops.fft_cuda import spectrum_peak_cuda
 from ..xform.fourier import (apply_window, bin_frequencies, create_window,
                              magnitude, phase as phase_fn)
 
@@ -131,19 +133,21 @@ def spectrum(samples, *, sample_rate: float = 1.0, fft_size: Optional[int] = Non
     frame = build_frame(samples, target_size)
 
     if _use_fused_one_sided(samples, target_size, sides):
-        amplitude, phase_bins = spectrum_amp_phase_cuda(frame, target_size, window)
+        frequencies, amplitude, phase_bins, *peak = spectrum_peak_cuda(
+            frame, target_size, window, sample_rate)
+        return SpectrumResult(frequencies=frequencies, amplitude=amplitude,
+                              phase=phase_bins, peak=SpectrumPeak(*peak))
+    win = create_window(window, target_size, dtype=samples.dtype,
+                        device=samples.device)
+    spec = _fft(apply_window(frame, win))
+    mags = magnitude(spec)
+    angs = phase_fn(spec)
+    if sides == "one":
+        amplitude = scale_amplitude_one_sided(mags, target_size)
+        phase_bins = angs[..., : target_size // 2 + 1]
     else:
-        win = create_window(window, target_size, dtype=samples.dtype,
-                            device=samples.device)
-        spec = _fft(apply_window(frame, win))
-        mags = magnitude(spec)
-        angs = phase_fn(spec)
-        if sides == "one":
-            amplitude = scale_amplitude_one_sided(mags, target_size)
-            phase_bins = angs[..., : target_size // 2 + 1]
-        else:
-            amplitude = scale_amplitude_two_sided(mags, target_size)
-            phase_bins = angs
+        amplitude = scale_amplitude_two_sided(mags, target_size)
+        phase_bins = angs
     frequencies = bin_frequencies(target_size, sample_rate, sides,
                                   dtype=samples.dtype, device=samples.device)
     peak = find_peak(amplitude, frequencies)

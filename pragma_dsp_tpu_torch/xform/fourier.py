@@ -138,17 +138,26 @@ def enbw(window_type: str, size: int) -> float:
     return float(size * np.sum(w * w) / np.sum(w) ** 2)
 
 
-def bin_frequencies(size: int, sample_rate: float, sides: str = "one",
-                    dtype=torch.float32, device=None) -> torch.Tensor:
-    """Bin index -> Hz axis (reference fourier.ts:147-165): one-sided has
-    floor(N/2)+1 bins, two-sided N bins, spacing sample_rate/N."""
+def bin_step(size: int, sample_rate: float) -> float:
+    """The spacing sample_rate/N of :func:`bin_frequencies`, in float64;
+    ValueError where either is not positive."""
     if size <= 0:
         raise ValueError(f"FFT size must be positive, got {size}")
     if sample_rate <= 0:
         raise ValueError(f"Sample rate must be positive, got {sample_rate}")
+    return float(sample_rate) / size
+
+
+def bin_frequencies(size: int, sample_rate: float, sides: str = "one",
+                    dtype=torch.float32, device=None) -> torch.Tensor:
+    """Bin index -> Hz axis (reference fourier.ts:147-165): one-sided has
+    floor(N/2)+1 bins, two-sided N bins, spacing sample_rate/N. Bin k is
+    k * :func:`bin_step` in float64, rounded once to ``dtype`` (K1's peak
+    instance writes the same floats)."""
+    step = bin_step(size, sample_rate)
     bin_count = size // 2 + 1 if sides == "one" else size
     # Built on the device: a copy from pageable host memory would
     # synchronise the stream. One float64 multiply, as numpy does it.
     freqs = torch.arange(bin_count, dtype=torch.float64,
                          device=resolve_device(device))
-    return (freqs * (float(sample_rate) / size)).to(dtype)
+    return (freqs * step).to(dtype)

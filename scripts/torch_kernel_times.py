@@ -21,7 +21,8 @@ port never calls it). Only the public wrappers are called, so a checkout whose C
 entries differ is timed the same way; a row whose wrapper the checkout lacks
 (K2's turned instances before they existed) is left out. K1's, K2's and
 K4's rows carry a digest of their output on the seeded input: two checkouts
-whose digests agree give bit-equal results there. The natural-order large
+whose digests agree give bit-equal results there (K1's peak instance, where
+the checkout has it: the digest of its peak indices). The natural-order large
 FFT (fft_big, ifft_big) is timed at [64, 2^20] beside cuFFT, and at 2^22 to
 2^25 points (a batch of 2^25 points) beside the permuted route and the
 transpose, the measurement behind the widest row stage that fft_big turns
@@ -137,6 +138,10 @@ def main() -> int:
                lambda: fft_cuda.spectrum_amp_phase_cuda(x, n, "hann"), with_digest=True)
         report("spectrum_onesided amp", (batch, n),
                lambda: fft_cuda.spectrum_amplitude_cuda(x, n, "hann"))
+        if hasattr(fft_cuda, "spectrum_peak_cuda"):    # spectrum()'s one launch
+            report("spectrum_onesided peak", (batch, n),
+                   lambda: fft_cuda.spectrum_peak_cuda(x, n, "hann", 48000.0)[3:],
+                   with_digest=True)
     channels, length, n, hop = K4_SHAPE
     sig = torch.randn((channels, length), generator=gen, device=dev)
     report("stft_onesided amp", K4_SHAPE,

@@ -654,6 +654,39 @@ def test_k1_k4_every_size_on_cuda(dev, n):
                                                                    "hann"))
 
 
+@pytest.mark.parametrize("n", [1 << k for k in range(8, 15)])
+def test_k1_peak_instance_on_cuda(dev, n):
+    """K1's peak instance on rows of zeros, alternating signs, a NaN, an
+    +inf and overflowing values, a batch that leaves a block ragged: its
+    amplitude and phase bit-equal to the amp+phase instance, its peak fields
+    to find_peak and the step-by-step reduction on its own output, its axis
+    to bin_frequencies; spectrum() launches it once."""
+    from pragma_dsp_tpu_torch.public.spectrum import find_peak
+    from pragma_dsp_tpu_torch.xform import bin_frequencies
+
+    rng = np.random.default_rng(n)
+    x = rng.standard_normal((37, n)).astype(np.float32)
+    x[1], x[2] = 0.0, (-1.0) ** np.arange(n)
+    x[3, 5], x[4, n // 2], x[5] = np.nan, np.inf, 3e38
+    xd = torch.from_numpy(x).to(dev)
+    bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t  # noqa: E731
+    for window in ("hann", "rect"):
+        freqs, amp, ph, *peak = fft_cuda.spectrum_peak_cuda(xd, n, window, 48000.0)
+        a2, p2 = fft_cuda.spectrum_amp_phase_cuda(xd, n, window)
+        assert torch.equal(bits(amp), bits(a2)) and torch.equal(bits(ph), bits(p2))
+        assert torch.equal(freqs, bin_frequencies(n, 48000.0, device=dev))
+        ref = find_peak(amp, freqs)
+        want = (ref.index, ref.frequency, ref.amplitude,
+                torch.take_along_dim(ph, ref.index[:, None], dim=-1)[:, 0])
+        steps = fft_cuda.spectrum_peak_steps(amp, ph, n, 48000.0)
+        for got, a, b in zip(peak, want, steps):
+            assert torch.equal(bits(got), bits(a)) and torch.equal(bits(got), bits(b))
+    before = dict(fft_cuda.LAUNCHES)
+    spectrum(xd, sample_rate=48000.0, window="hann")
+    moved = {k: v - before[k] for k, v in fft_cuda.LAUNCHES.items() if v != before[k]}
+    assert moved == {"spectrum_onesided": 1}
+
+
 def test_bf16_dispatch_is_the_f32_kernel_cast_back(dev):
     rng = np.random.default_rng(16)
     re = torch.from_numpy(rng.standard_normal((8, 1024)).astype(np.float32)).to(dev)

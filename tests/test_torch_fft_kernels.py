@@ -352,7 +352,8 @@ def test_build_is_keyed_by_source_hash(tmp_path, monkeypatch):
         "spectrum_twosided.cu", "stft_onesided.cu"]
     assert set(_build._SIGNATURES) == {
         "fft_cols_f32", "fft_rows_f32", "osconv_f32", "osconv_signal_f32", "pfb_f32",
-        "spectrum_onesided_f32", "spectrum_twosided_f32", "stft_onesided_f32"}
+        "spectrum_onesided_f32", "spectrum_onesided_peak_f32", "spectrum_twosided_f32",
+        "stft_onesided_f32"}
 
 
 def test_build_raises_without_nvcc(tmp_path, monkeypatch):
