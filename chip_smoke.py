@@ -89,7 +89,12 @@ Phases (one line each; any failed gate exits non-zero):
      transforms; K1 as the main path launches it, its peak instance, and its
      amp+phase instance beside it), its plain version and the library; K6's blocked store
      beside its own bound, and K2's turned store and load on the large
-     FFT's rows beside theirs;
+     FFT's rows beside theirs; the pieced instances dist_fft's turn runs
+     (K7's blocked store and load with the grid, K2's pieced load and
+     store) at the 4-card cell's rank shape, [256, 1024, 256] with D = 4,
+     against their plain version, torch.equal to the natural instance with
+     the re-layout, and timed launched and queued beside it (listed under
+     K7 and K2 in the kernels line);
  19. config 3, the polyphase resampler (no kernel of K1-K7 on its path):
      bench.py's call on the committed fixture, resample_poly 147/160 over
      phase 10's [128, 480000] signal, upfirdn_step over it in chunks of
@@ -234,6 +239,8 @@ POWER_NFFT = 128
 FFT_SHAPE = (64, 1024, 1024)     # phase 17's [64, 2^20] as (N2, N1) views
 FFT_ROWS = (0, 21, 42, 63)       # batch rows held against float64 numpy
 FFT_SWEEP = (1, 2, 4, 8)         # chunk depths timed on one rank
+PIECES_SHAPE = (256, 1024, 256)  # dist_fft_1m_b256_4chip's rank block: [256, 2^20] as
+PIECES_D = 4                     # (1024, 1024) over 4 cards, [B, N2, N1/D] a rank
 PAR_VS_DIRECT_DB = 125.0     # a sharded entry against the direct op on the same card
 IDLE_CALLS = 5           # calls in each phase-22 trace
 SPIN_CYCLES = 6_000_000  # a few ms of device spin ahead of a queued timing window
@@ -1914,6 +1921,92 @@ def main() -> int:
             f"[{BIG_BATCH}, {n1b}, {n2b}]): {ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
             f"({100 * bound_ms / ms:.1f}% of the time), row K2 on the same rows "
             f"{rows_ms:.4f} ms")
+    # The pieced instances of K7 and K2 (dist_fft's turn with no copy around
+    # its all-to-all) at the 4-card cell's rank shape, one chunk: each held
+    # against its plain version and torch.equal to the natural instance
+    # with the re-layout, timed launched and queued beside it. They run on
+    # the path only with more than one rank (one rank's turn is the
+    # identity), so phase 21 on one card counts none of them.
+    from pragma_dsp_tpu_torch.parallel.dist_fft import _fold_grids
+
+    pb, pn2, ploc = PIECES_SHAPE
+    pn1, ph = ploc * PIECES_D, pn2 // PIECES_D
+    pgen = torch.Generator(device=dev).manual_seed(SEED)
+    cols_in = tuple(torch.randn((pb, pn2, ploc), generator=pgen, device=dev) for _ in range(2))
+    rows_in = tuple(torch.randn((pb, ph, pn1), generator=pgen, device=dev) for _ in range(2))
+    cols_p = tuple(fft_cuda.to_pieces(t, PIECES_D, pb, -2) for t in cols_in)
+    rows_p = tuple(fft_cuda.to_pieces(t, PIECES_D, pb, -1) for t in rows_in)
+    fwd_grid = _fold_grids(pn2, pn1, 0, ploc, dev)
+    inv_grid = _fold_grids(pn2, pn1, 0, ploc, dev, 1.0)
+    pieces = (PIECES_D, pb)
+    ppts = pb * pn2 * ploc
+    inst = {   # label: (kernel, pieced call, natural call, re-layout, plain call, bound)
+        "K7 blocked store (dist_fft)": (
+            "fft_cols",
+            lambda: fft_cuda.fft_cols_pieces_cuda(*cols_in, pieces, fold=fwd_grid),
+            lambda: fft_cuda.fft_cols_cuda(*cols_in, fold=fwd_grid),
+            lambda t: fft_cuda.to_pieces(t, PIECES_D, pb, -2),
+            lambda: fft_cuda.fft_cols_pieces_plain(*cols_in, pieces, fold=fwd_grid),
+            bound(16 * ppts + 8 * pn2 * ploc, pb * ploc * fft_flops(pn2) + 6 * ppts)),
+        "K7 blocked load, inverse (dist_ifft)": (
+            "fft_cols",
+            lambda: fft_cuda.fft_cols_pieces_cuda(*cols_p, pieces, inverse=True,
+                                                  fold=inv_grid, load=True),
+            lambda: fft_cuda.fft_cols_cuda(*cols_in, inverse=True, fold=inv_grid),
+            lambda t: t,
+            lambda: fft_cuda.fft_cols_pieces_plain(*cols_p, pieces, inverse=True,
+                                                   fold=inv_grid, load=True),
+            bound(16 * ppts + 8 * pn2 * ploc, pb * ploc * fft_flops(pn2) + 7 * ppts)),
+        "K2 pieced load (dist_fft)": (
+            "fft_rows",
+            lambda: fft_cuda.fft_rows_pieces_cuda(*rows_p, pieces, load=True),
+            lambda: fft_cuda.fft_rows_cuda(*(t.view(-1, pn1) for t in rows_in)),
+            lambda t: t.view(pb, ph, pn1),
+            lambda: fft_cuda.fft_rows_pieces_plain(*rows_p, pieces, load=True),
+            bound(16 * ppts + 8 * pn1, pb * ph * fft_flops(pn1))),
+        "K2 pieced store, inverse (dist_ifft)": (
+            "fft_rows",
+            lambda: fft_cuda.fft_rows_pieces_cuda(*rows_in, pieces, inverse=True),
+            lambda: fft_cuda.fft_rows_cuda(*(t.view(-1, pn1) for t in rows_in), inverse=True),
+            lambda t: fft_cuda.to_pieces(t.view(pb, ph, pn1), PIECES_D, pb, -1),
+            lambda: fft_cuda.fft_rows_pieces_plain(*rows_in, pieces, inverse=True),
+            bound(16 * ppts + 8 * pn1, pb * ph * fft_flops(pn1))),
+    }
+    pieces_rows = {"fft_cols": [], "fft_rows": []}
+    for label, (kname, pieced, natural, relay, plain, (bound_ms, bound_by)) in inst.items():
+        for key in fft_cuda.LAUNCHES:
+            fft_cuda.LAUNCHES[key] = 0
+        got = pieced()
+        torch.cuda.synchronize()
+        moved = {k: v for k, v in fft_cuda.LAUNCHES.items() if v}
+        gate(moved == {kname: 1}, f"{label}: launched {moved}, expected {{{kname!r}: 1}}")
+        nat = natural()
+        equal = all(torch.equal(g, relay(w)) for g, w in zip(got, nat))
+        gate(equal, f"{label}: not torch.equal to the natural instance with the re-layout")
+        del nat
+        ref = plain()
+        err = float(max((g - r).abs().max() for g, r in zip(got, ref)))
+        s_plain = dev_snr_db(ref, got)
+        gate(s_plain >= K7_PLAIN_GATE_DB, f"{label}: {s_plain:.1f} dB against its plain version")
+        del got, ref
+        ms, qms = timed(pieced), timed(pieced, queued=True)
+        nms, nqms = timed(natural), timed(natural, queued=True)
+        pms = timed(plain, runs=3, inner=1)
+        pieces_rows[kname].append({
+            "name": label, "shape": list(PIECES_SHAPE), "pieces": PIECES_D, "ms": ms,
+            "queued_ms": qms, "natural_ms": nms, "natural_queued_ms": nqms, "plain_ms": pms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
+            "equal_to_natural_re_laid": equal})
+        say(f"[18] {kname}, {label} ([{pb}, {pn2}, {ploc}] a rank, D = {PIECES_D}, one chunk) "
+            f"on {name} ({card}): {ms:.4f} ms launched, {qms:.4f} queued; the natural "
+            f"instance {nms:.4f} / {nqms:.4f}; bound {bound_ms:.4f} ms by {bound_by} "
+            f"({100 * bound_ms / qms:.1f}% queued); plain {pms:.4f} ms, {s_plain:.1f} dB, "
+            f"max|kernel-plain| {err:.3e}; torch.equal to the natural instance re-laid")
+    for entry in kernels:
+        if entry["name"] in pieces_rows:
+            entry["instances"] = pieces_rows[entry["name"]]
+    del cols_in, rows_in, cols_p, rows_p
+    torch.cuda.empty_cache()
     # 19. config 3: the polyphase resampler. No kernel of K1-K7 lies on
     # this path or the next: their counters must not move.
     import gzip

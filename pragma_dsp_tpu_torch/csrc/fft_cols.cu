@@ -47,6 +47,20 @@
 // donate: out_re/out_im may alias in_re/in_im. Every plan here has an
 // exchange, whose barrier lies between a block's last load and its first
 // store, and the tiles of different blocks are disjoint, so in place is safe.
+//
+// Pieced instances (LAYOUT) serve the distributed FFT (parallel/dist_fft.py),
+// whose digit-swap turn is an all-to-all of D pieces: they store (forward)
+// or load (inverse) the rows in the all-to-all's layout, so that no copy
+// runs around the collective. Items are grouped in chunks of bc; the pieced
+// side of a chunk is [D, bc, h, m] with h = n/D, and natural row k2 of an
+// item of the chunk lies in piece k2 / h, row k2 % h of the item's slot:
+// row chunk*bc*n + (k2/h)*bc*h + (item%bc)*h + k2%h of m columns, which is
+// base + k2 + (k2/h)*(bc - 1)*h. It is a remap of whole rows, so a warp's
+// TL consecutive words stay consecutive and the access stays coalesced; the
+// grid keeps its natural rows, and the arithmetic is the natural
+// instance's, so a pieced launch gives the same bits as a natural launch
+// followed (or preceded) by the re-layout. A pieced launch never works in
+// place: its two sides are laid out differently.
 #include "fft_regs.cuh"
 
 namespace {
@@ -56,6 +70,9 @@ constexpr int kPadShift = 4;  // one spare tile row after every 16
 constexpr int kMinLog2N = 8, kMaxLog2N = 12;
 constexpr int kMinLog2Tile = 3, kMaxLog2Tile = 5;  // 8 to 32 columns a tile
 constexpr int kMaxThreads = 1024;
+
+// How a launch lays out its rows (the C entry's layout).
+enum Layout : int { kNatural = 0, kStorePieces = 1, kLoadPieces = 2 };
 
 // Whether K7 has an instance of (n = 2^L, tile = 2^LT): its n/16 * tile
 // threads fit a block, and the tile is 8 columns or more, or narrower only
@@ -75,14 +92,35 @@ struct TileShape {
   static constexpr size_t kSmem = 2 * sizeof(float) * kPlane;
 };
 
+// Where register q of row-thread r lies on a pieced side: its row
+// k2 = r + T*q of the item at base + k2 + (k2 >> log2h)*(bc - 1)*h rows (the
+// header's remap), in words.
+template <int LOG2N, int LOG2T>
+struct PieceRows {
+  size_t base, step, skip;
+  int r, log2h;
+  __device__ __forceinline__ PieceRows(size_t item, size_t g_at, int r_, int m, int bc,
+                                       int log2h_)
+      : step(static_cast<size_t>(m) << LOG2T), r(r_), log2h(log2h_) {
+    const size_t slot = item % static_cast<size_t>(bc);
+    base = (((item - slot) << LOG2N) + (slot << log2h)) * m + g_at;
+    skip = (static_cast<size_t>(bc - 1) << log2h) * m;
+  }
+  __device__ __forceinline__ size_t at(int q) const {
+    return base + q * step + static_cast<size_t>((r + (q << LOG2T)) >> log2h) * skip;
+  }
+};
+
 // gsign: +1 when the planes are (re, im), -1 when the launcher swapped them
-// (the grid is then multiplied in conjugated).
-template <int LOG2N, int PLAN, int LOG2TL>
+// (the grid is then multiplied in conjugated). bc, log2h: a pieced launch's
+// items a chunk and log2 of its rows a piece (unused by a natural one).
+template <int LOG2N, int PLAN, int LOG2TL, int LAYOUT>
 __global__ void __launch_bounds__(TileShape<LOG2N, LOG2TL>::kBlock)
 fft_cols_kernel(const float* in_re, const float* in_im, float* out_re,
                 float* out_im, const float* __restrict__ gc,
                 const float* __restrict__ gs, const float2* __restrict__ tw,
-                int m, int tiles, float scale, float gsign, int fold_on_load) {
+                int m, int tiles, float scale, float gsign, int fold_on_load,
+                int bc, int log2h) {
   using Shape = TileShape<LOG2N, LOG2TL>;
   constexpr int LOG2T = Shape::kLog2T;
   extern __shared__ float smem[];
@@ -98,10 +136,19 @@ fft_cols_kernel(const float* in_re, const float* in_im, float* out_re,
   const size_t step = static_cast<size_t>(m) << LOG2T;  // from register q to q + 1
   const bool fold = gc != nullptr;
   float xr[kRegs], xi[kRegs];
+  if constexpr (LAYOUT == kLoadPieces) {
+    const PieceRows<LOG2N, LOG2T> pieced(item, g_at, r, m, bc, log2h);
 #pragma unroll
-  for (int q = 0; q < kRegs; ++q) {
-    xr[q] = active ? in_re[at + q * step] : 0.0f;
-    xi[q] = active ? in_im[at + q * step] : 0.0f;
+    for (int q = 0; q < kRegs; ++q) {
+      xr[q] = active ? in_re[pieced.at(q)] : 0.0f;
+      xi[q] = active ? in_im[pieced.at(q)] : 0.0f;
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < kRegs; ++q) {
+      xr[q] = active ? in_re[at + q * step] : 0.0f;
+      xi[q] = active ? in_im[at + q * step] : 0.0f;
+    }
   }
   if (fold && fold_on_load && active) {
 #pragma unroll
@@ -126,10 +173,19 @@ fft_cols_kernel(const float* in_re, const float* in_im, float* out_re,
       xr[q] = yr;
     }
   }
+  if constexpr (LAYOUT == kStorePieces) {
+    const PieceRows<LOG2N, LOG2T> pieced(item, g_at, r, m, bc, log2h);
 #pragma unroll
-  for (int q = 0; q < kRegs; ++q) {
-    out_re[at + q * step] = xr[q] * scale;
-    out_im[at + q * step] = xi[q] * scale;
+    for (int q = 0; q < kRegs; ++q) {
+      out_re[pieced.at(q)] = xr[q] * scale;
+      out_im[pieced.at(q)] = xi[q] * scale;
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < kRegs; ++q) {
+      out_re[at + q * step] = xr[q] * scale;
+      out_im[at + q * step] = xi[q] * scale;
+    }
   }
 }
 
@@ -141,22 +197,35 @@ struct Args {
   int batch, m;
   float scale, gsign;
   int fold_on_load;
+  int layout, bc, log2h;
   cudaStream_t stream;
 };
 
-template <int LOG2N, int PLAN, int LOG2TL>
-int launch(const Args& a) {
+template <int LOG2N, int PLAN, int LOG2TL, int LAYOUT>
+int launch_layout(const Args& a) {
   using Shape = TileShape<LOG2N, LOG2TL>;
   const long long tiles = (static_cast<long long>(a.m) + (1 << LOG2TL) - 1) >> LOG2TL;
   const long long blocks = tiles * a.batch;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = allow_smem(fft_cols_kernel<LOG2N, PLAN, LOG2TL>, Shape::kSmem);
+  cudaError_t err = allow_smem(fft_cols_kernel<LOG2N, PLAN, LOG2TL, LAYOUT>, Shape::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  fft_cols_kernel<LOG2N, PLAN, LOG2TL>
+  fft_cols_kernel<LOG2N, PLAN, LOG2TL, LAYOUT>
       <<<static_cast<unsigned>(blocks), Shape::kBlock, Shape::kSmem, a.stream>>>(
           a.in_re, a.in_im, a.out_re, a.out_im, a.gc, a.gs, a.tw, a.m,
-          static_cast<int>(tiles), a.scale, a.gsign, a.fold_on_load);
+          static_cast<int>(tiles), a.scale, a.gsign, a.fold_on_load, a.bc, a.log2h);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The pieced layouts have instances at n's widest tile only (the wrapper
+// always takes it there: a ragged tile is masked).
+template <int LOG2N, int PLAN, int LOG2TL>
+int launch(const Args& a) {
+  if (a.layout == kNatural) return launch_layout<LOG2N, PLAN, LOG2TL, kNatural>(a);
+  if constexpr (!has_instance(LOG2N, LOG2TL + 1)) {
+    if (a.layout == kStorePieces) return launch_layout<LOG2N, PLAN, LOG2TL, kStorePieces>(a);
+    if (a.layout == kLoadPieces) return launch_layout<LOG2N, PLAN, LOG2TL, kLoadPieces>(a);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The instance of (n = 2^L, tile = 2^LT), where there is one and the host's
@@ -186,14 +255,22 @@ int launch_tile(const Args& a, int plan, int log2tl) {
 // grid) or both (n, m) f32; tw/plan: the pass table and plan of the n-point
 // transform (n = 256 .. 4096). tl is the tile width in columns: 8, 16 or 32
 // with n/16 * tl <= 1024 threads, 4 at n = 4096; the wrapper picks it.
+// layout: 0 natural both sides; 1 the output, 2 the input in pieces
+// [batch/bc, d, bc, n/d, m] (d a power of two that divides n, bc a divisor
+// of batch; out never in); d and bc are unused at layout 0.
 extern "C" int fft_cols_f32(const void* in_re, const void* in_im, void* out_re,
                             void* out_im, const void* gc, const void* gs,
                             const void* tw, int plan, int batch, int n, int m,
-                            int tl, int inverse, void* stream) {
+                            int tl, int inverse, int layout, int d, int bc,
+                            void* stream) {
   const int log2tl = log2_exact(tl);
   if (n < 2 || (n & (n - 1)) != 0 || tl < 1 || (1 << log2tl) != tl ||
       batch < 1 || m < 1 ||
-      (gc == nullptr) != (gs == nullptr))
+      (gc == nullptr) != (gs == nullptr) || layout < kNatural || layout > kLoadPieces)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (layout != kNatural &&
+      (d < 1 || (d & (d - 1)) != 0 || d > n || bc < 1 || batch % bc != 0 ||
+       in_re == out_re || in_im == out_im))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.in_re = static_cast<const float*>(inverse ? in_im : in_re);
@@ -208,6 +285,9 @@ extern "C" int fft_cols_f32(const void* in_re, const void* in_im, void* out_re,
   a.scale = inverse ? 1.0f / static_cast<float>(n) : 1.0f;  // exact: n = 2^k
   a.gsign = inverse ? -1.0f : 1.0f;
   a.fold_on_load = inverse;
+  a.layout = layout;
+  a.bc = layout == kNatural ? 1 : bc;
+  a.log2h = layout == kNatural ? 0 : log2_exact(n / d);
   a.stream = static_cast<cudaStream_t>(stream);
   switch (log2_exact(n)) {
 #define COLS_CASE(L, P) \

@@ -53,15 +53,36 @@
 //   different banks and, in device memory, 32/G whole sectors.
 // * A turned launch never works in place: its output is laid out
 //   otherwise than its input.
+//
+// Pieced instances (kLoadPieces, kStorePieces, n from 256 to 4096) serve the
+// distributed FFT (parallel/dist_fft.py), whose digit-swap turn is an
+// all-to-all of D pieces: they read (forward) or write (inverse) the rows in
+// the all-to-all's layout, so that no copy runs around the collective. Rows
+// are grouped in chunks of R; the pieced side of a chunk is [D, R, loc]
+// with loc = n/D, and point c of row rr of the chunk lies at
+// (c / loc)*R*loc + rr*loc + c % loc, that is rr*loc + c + (c/loc)*(R-1)*loc.
+// Each of a thread's registers lies in one piece where loc >= T (at
+// n = 1024 and D = 4 a row's 64 threads read runs of 64 words), so a warp's
+// accesses stay whole lines. The arithmetic is the row instance's, so a
+// pieced launch gives the same bits as a row launch preceded (or followed)
+// by the re-layout; it never works in place.
 #include "fft_regs.cuh"
 
 namespace {
 
 // How a launch lays its rows out in device memory (the C entry's turn).
-enum Turn : int { kRowsInRowsOut = 0, kStoreTurned = 1, kLoadTurned = 2 };
+enum Turn : int {
+  kRowsInRowsOut = 0, kStoreTurned = 1, kLoadTurned = 2, kLoadPieces = 3, kStorePieces = 4
+};
 
-// The sizes that have turned instances.
+// The sizes that have turned and pieced instances.
 constexpr int kTurnMinLog2N = 8, kTurnMaxLog2N = 12;
+
+// Whether a launch's rows lie as rows on both sides but for a remap of
+// whole points (no staging through shared memory).
+__host__ __device__ constexpr bool by_rows(int turn) {
+  return turn == kRowsInRowsOut || turn == kLoadPieces || turn == kStorePieces;
+}
 
 // Rows a block of a turned launch holds: 8, or as many as 1024 threads hold.
 __host__ __device__ constexpr int turn_rows(int threads) {
@@ -72,7 +93,7 @@ __host__ __device__ constexpr int turn_rows(int threads) {
 template <int LOG2N, int PLAN, int TURN>
 struct RowBlock {
   using Row = RowShape<LOG2N, PLAN>;
-  static constexpr int kRows = TURN == kRowsInRowsOut ? Row::kRows : turn_rows(Row::kThreads);
+  static constexpr int kRows = by_rows(TURN) ? Row::kRows : turn_rows(Row::kThreads);
   static constexpr int kLog2Rows = log2_exact(kRows);
   static constexpr int kBlock = kRows * Row::kThreads;
   // Words between two rows of the turned staging: a warp's turned access
@@ -80,15 +101,17 @@ struct RowBlock {
   static constexpr int kTurnStride = Row::kN + 32 / kRows;
   static constexpr size_t kSmem =
       (PLAN >> 4) != 0 ? 2 * sizeof(float) * kRows * static_cast<size_t>(Row::kStride) : 0;
-  static_assert(TURN == kRowsInRowsOut || (kTurnStride <= Row::kStride && (PLAN >> 4) != 0),
+  static_assert(by_rows(TURN) || (kTurnStride <= Row::kStride && (PLAN >> 4) != 0),
                 "the turned staging lies inside the exchange");
 };
 
+// cols: the turned width (kStoreTurned, kLoadTurned) or the rows a chunk
+// (the pieced instances); log2loc: log2 of a piece's points (pieced only).
 template <int LOG2N, int PLAN, int TURN>
 __global__ void __launch_bounds__(RowBlock<LOG2N, PLAN, TURN>::kBlock)
 fft_rows_kernel(const float* in_re, const float* in_im, float* out_re,
                 float* out_im, const float2* __restrict__ tw, int batch,
-                int cols, float scale) {
+                int cols, float scale, int log2loc) {
   using Shape = RowShape<LOG2N, PLAN>;
   using Block = RowBlock<LOG2N, PLAN, TURN>;
   constexpr int R = Shape::kRegs;
@@ -100,20 +123,35 @@ fft_rows_kernel(const float* in_re, const float* in_im, float* out_re,
   float* sre = smem + local * Shape::kStride;
   float* sim = sre + Block::kRows * Shape::kStride;
   float xr[R], xi[R];
-  if constexpr (TURN == kRowsInRowsOut) {
+  if constexpr (by_rows(TURN)) {
     const bool active = row < batch;
     const size_t at = (static_cast<size_t>(active ? row : 0) << LOG2N) + tid;
+    // The pieced side: point c = tid + T*q of row rr of its chunk lies at
+    // chunk*R*n + rr*loc + c + (c >> log2loc)*(R - 1)*loc (the header's remap).
+    size_t p_at = 0, p_skip = 0;
+    if constexpr (TURN != kRowsInRowsOut) {
+      const long long a_row = active ? row : 0;
+      const long long rr = a_row % cols;
+      p_at = (static_cast<size_t>(a_row - rr) << LOG2N) + (static_cast<size_t>(rr) << log2loc) +
+             tid;
+      p_skip = static_cast<size_t>(cols - 1) << log2loc;
+    }
+    const auto pieced = [&](int q) -> size_t {
+      return p_at + (q << LOG2T) + static_cast<size_t>((tid + (q << LOG2T)) >> log2loc) * p_skip;
+    };
 #pragma unroll
     for (int q = 0; q < R; ++q) {
-      xr[q] = active ? in_re[at + (q << LOG2T)] : 0.0f;
-      xi[q] = active ? in_im[at + (q << LOG2T)] : 0.0f;
+      const size_t from = TURN == kLoadPieces ? pieced(q) : at + (q << LOG2T);
+      xr[q] = active ? in_re[from] : 0.0f;
+      xi[q] = active ? in_im[from] : 0.0f;
     }
     fft_regs<R, LOG2T, PLAN>(xr, xi, sre, sim, tw, tid);
     if (!active) return;
 #pragma unroll
     for (int q = 0; q < R; ++q) {
-      out_re[at + (q << LOG2T)] = xr[q] * scale;
-      out_im[at + (q << LOG2T)] = xi[q] * scale;
+      const size_t to = TURN == kStorePieces ? pieced(q) : at + (q << LOG2T);
+      out_re[to] = xr[q] * scale;
+      out_im[to] = xi[q] * scale;
     }
   } else {
     // The block's rows are j0 .. j0 + G - 1 of item b; the turned array of
@@ -180,6 +218,7 @@ struct Args {
   const float2* tw;
   int batch, cols, turn;
   float scale;
+  int log2loc;
   cudaStream_t stream;
 };
 
@@ -190,7 +229,7 @@ int launch_turn(const Args& a) {
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (a.batch + Block::kRows - 1) / Block::kRows;
   fft_rows_kernel<LOG2N, PLAN, TURN><<<blocks, Block::kBlock, Block::kSmem, a.stream>>>(
-      a.in_re, a.in_im, a.out_re, a.out_im, a.tw, a.batch, a.cols, a.scale);
+      a.in_re, a.in_im, a.out_re, a.out_im, a.tw, a.batch, a.cols, a.scale, a.log2loc);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -198,6 +237,12 @@ template <int LOG2N, int PLAN>
 int launch(const Args& a) {
   if (a.turn == kRowsInRowsOut) return launch_turn<LOG2N, PLAN, kRowsInRowsOut>(a);
   if constexpr (LOG2N >= kTurnMinLog2N && LOG2N <= kTurnMaxLog2N) {
+    // whole chunks of rows
+    if (a.turn == kLoadPieces || a.turn == kStorePieces) {
+      if (a.cols < 1 || a.batch % a.cols != 0) return static_cast<int>(cudaErrorInvalidValue);
+      if (a.turn == kLoadPieces) return launch_turn<LOG2N, PLAN, kLoadPieces>(a);
+      return launch_turn<LOG2N, PLAN, kStorePieces>(a);
+    }
     // whole groups of rows, none across two items
     constexpr int G = RowBlock<LOG2N, PLAN, kStoreTurned>::kRows;
     if (a.cols < G || a.cols % G != 0 || a.batch % a.cols != 0)
@@ -216,11 +261,18 @@ int launch(const Args& a) {
 // [batch/cols, n, cols]; 2 (load turned) in [batch/cols, n, cols], rows
 // out. A turned launch takes n from 256 to 4096 and cols a multiple of the
 // rows its block holds (8; 4 at n = 4096) that divides batch; cols is
-// unused at turn 0.
+// unused at turn 0. 3 (load pieced) in [batch/cols, d, cols, n/d], rows
+// out; 4 (store pieced) rows in, out [batch/cols, d, cols, n/d]: n from 256
+// to 4096, cols (the rows a chunk) a divisor of batch, d a power of two
+// that divides n, out never in; d is unused at turns 0 to 2.
 extern "C" int fft_rows_f32(const void* in_re, const void* in_im, void* out_re,
                             void* out_im, const void* tw, int plan, int batch,
-                            int n, int cols, int turn, int inverse, void* stream) {
-  if (n < 1 || (n & (n - 1)) != 0 || batch < 1 || turn < kRowsInRowsOut || turn > kLoadTurned)
+                            int n, int cols, int turn, int inverse, int d,
+                            void* stream) {
+  if (n < 1 || (n & (n - 1)) != 0 || batch < 1 || turn < kRowsInRowsOut || turn > kStorePieces)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool pieced = turn == kLoadPieces || turn == kStorePieces;
+  if (pieced && (d < 1 || (d & (d - 1)) != 0 || d > n || in_re == out_re || in_im == out_im))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.in_re = static_cast<const float*>(inverse ? in_im : in_re);
@@ -232,6 +284,7 @@ extern "C" int fft_rows_f32(const void* in_re, const void* in_im, void* out_re,
   a.cols = cols;
   a.turn = turn;
   a.scale = inverse ? 1.0f / static_cast<float>(n) : 1.0f;  // exact: n = 2^k
+  a.log2loc = pieced ? log2_exact(n / d) : 0;
   a.stream = static_cast<cudaStream_t>(stream);
   switch (log2_exact(n)) {
     case 0: return plan == 0 ? launch<0, 0>(a) : static_cast<int>(cudaErrorInvalidValue);

@@ -32,8 +32,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # in_re, in_im, out_re, out_im, pass table, plan, batch, n, cols, turn,
-    # inverse, stream
-    "fft_rows_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # inverse, pieces, stream
+    "fft_rows_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, win, amp, ph (nullable), twc, tws, pass table, plan, batch, n, stream
     "spectrum_onesided_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # x, win, amp, ph, axis, index, freq, peak amp, peak ph, twc, tws, pass
@@ -53,8 +53,8 @@ _SIGNATURES = {
     # blocks, skip, out_frames, out_first, stream
     "pfb_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # in_re, in_im, out_re, out_im, gc, gs (both nullable), pass table, plan,
-    # batch, n, m, tl, inverse, stream
-    "fft_cols_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # batch, n, m, tl, inverse, layout, pieces, items a chunk, stream
+    "fft_cols_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

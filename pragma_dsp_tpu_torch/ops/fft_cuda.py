@@ -15,7 +15,9 @@ Counterpart of ``pragma_dsp_tpu/ops/fft_pallas.py``:
   register-resident mixed-radix core (``csrc/fft_regs.cuh``) that K1, K3,
   K4 and K5 share; :func:`radix_plan` is its plan. Its turned instances
   (:func:`fft_rows_turned_cuda`) read or write the rows as the columns of
-  a [B, n, m] array, the large FFT's natural order.
+  a [B, n, m] array, the large FFT's natural order; its pieced instances
+  (:func:`fft_rows_pieces_cuda`) read or write them in the pieces of the
+  distributed FFT's all-to-all (:func:`to_pieces`).
 * K3 ``spectrum_twosided`` (``csrc/spectrum_twosided.cu``) replaces
   ``_spectrum_kernel``: window -> DFT -> |X|/n over all n bins, for any
   n <= 128 and power-of-two n above; it serves ``sides="two"`` and the
@@ -32,6 +34,8 @@ Counterpart of ``pragma_dsp_tpu/ops/fft_pallas.py``:
   (forward) or the input (inverse): the register core run down the columns
   of a tile, the lanes of a warp across its columns. It is stage 1 of the
   large FFT (``ops/fft_big.py``) and the axis -2 route of ``ops.dispatch``.
+  Its pieced instances (:func:`fft_cols_pieces_cuda`) store or load the
+  rows in the pieces of the distributed FFT's all-to-all.
 
 K1, K3 and K4 hold a whole frame in one block, which ends at n = 16384. A longer CUDA frame takes the route the JAX package takes in
 effect: window -> ``ops.dispatch.fft`` (the large FFT, K7 then K2) -> |X|,
@@ -108,12 +112,18 @@ __all__ = [
     "fft_cols_cuda",
     "fft_cols_plain",
     "fft_cols_steps",
+    "to_pieces",
+    "from_pieces",
+    "fft_cols_pieces_cuda",
+    "fft_cols_pieces_plain",
+    "fft_rows_pieces_cuda",
+    "fft_rows_pieces_plain",
 ]
 
 # A row of complex f32 must fit one block's shared memory (8*n bytes).
 MAX_ROWS_N = 16384
-# The sizes K2's turned instances take (kTurnMinLog2N, kTurnMaxLog2N in
-# csrc/fft_rows.cu): 8 rows a block to n = 2048, 4 at 4096.
+# The sizes K2's turned and pieced instances take (kTurnMinLog2N,
+# kTurnMaxLog2N in csrc/fft_rows.cu): 8 rows a block to n = 2048, 4 at 4096.
 MIN_TURNED_N, MAX_TURNED_N = 256, 4096
 # The column kernel's largest transform, the JAX package's bound
 # (fft_pallas.py:791), kept as the contract: ops.fft_big splits by it. Four
@@ -993,16 +1003,18 @@ def _check_rows_planes(re: torch.Tensor, im: torch.Tensor, n: int) -> None:
 
 
 def _launch_rows_kernel(re, im, ore, oim, rows: int, n: int, cols: int,
-                        turn: int, inverse: bool) -> None:
+                        turn: int, inverse: bool, pieces: int = 1) -> None:
     """One launch of K2 on contiguous float32 planes (``turn``: 0 rows in
-    and out, 1 stored turned, 2 loaded turned; ``cols`` the turned width)."""
+    and out, 1 stored turned, 2 loaded turned, 3 loaded in pieces, 4 stored
+    in pieces; ``cols`` the turned width or the rows a chunk of pieces,
+    ``pieces`` their number)."""
     lib = _build.library()
     tw = _device_pass_twiddles(n, re.device)
     with torch.cuda.device(re.device):
         stream = torch.cuda.current_stream(re.device).cuda_stream
         code = lib.fft_rows_f32(re.data_ptr(), im.data_ptr(), ore.data_ptr(),
                                 oim.data_ptr(), tw.data_ptr(), _plan_code_of(n),
-                                rows, n, cols, turn, int(inverse), stream)
+                                rows, n, cols, turn, int(inverse), pieces, stream)
     _build.check(lib, code, "fft_rows")
     LAUNCHES["fft_rows"] += 1
 
@@ -1107,6 +1119,194 @@ def fft_rows_turned_cuda(re: torch.Tensor, im: torch.Tensor, inverse: bool = Fal
     return ore, oim
 
 
+# ── the distributed FFT's pieces (K2 and K7) ─────────────────────────
+
+
+def to_pieces(t: torch.Tensor, d: int, bc: int, axis: int) -> torch.Tensor:
+    """The layout of the distributed FFT's all-to-all: [B, a, b] planes
+    with ``axis`` (-2 or -1) cut into ``d`` pieces and the items in chunks
+    of ``bc``, as [B/bc, d, bc, a/d, b] (axis -2) or [B/bc, d, bc, a, b/d]
+    (axis -1), contiguous: chunk c's [d, bc, ...] is one send buffer, piece
+    j bound for position j of the axis."""
+    b, rows, cols = t.shape
+    if axis % 3 == 1:
+        v = t.reshape(b // bc, bc, d, rows // d, cols).transpose(1, 2)
+    else:
+        v = t.reshape(b // bc, bc, rows, d, cols // d).permute(0, 3, 1, 2, 4)
+    return v.contiguous()
+
+
+def from_pieces(p: torch.Tensor, axis: int) -> torch.Tensor:
+    """The inverse of :func:`to_pieces`: [C, d, bc, a', b'] pieces back to
+    natural [C*bc, a, b] planes, ``axis`` (-2 or -1) the one they cut."""
+    c, d, bc, rows, cols = p.shape
+    if axis % 3 == 1:
+        return p.transpose(1, 2).reshape(c * bc, d * rows, cols)
+    return p.permute(0, 2, 3, 1, 4).reshape(c * bc, rows, d * cols)
+
+
+def _check_pieces(re: torch.Tensor, im: torch.Tensor, pieces, n: int, load: bool,
+                  what: str) -> Tuple[int, int]:
+    """(d, bc) of a pieced wrapper's call, checked: d divides the
+    transform's n, bc the items; a loaded buffer is [C, d, bc, ...] and
+    contiguous (a copy would be the very re-layout the kernels spare)."""
+    d, bc = (int(v) for v in pieces)
+    if re.shape != im.shape:
+        raise ValueError(f"{what} takes two planes of one shape, got "
+                         f"{tuple(re.shape)} and {tuple(im.shape)}")
+    if d < 1 or n % d != 0:
+        raise ValueError(f"{what}: {d} pieces do not divide n = {n}")
+    if load:
+        if re.ndim != 5 or tuple(re.shape[1:3]) != (d, bc):
+            raise ValueError(f"{what} loads [chunks, {d}, {bc}, ...] pieces, got "
+                             f"{tuple(re.shape)}")
+        if not (re.is_contiguous() and im.is_contiguous()):
+            raise ValueError(f"{what} loads contiguous pieces")
+    elif bc < 1 or re.ndim != 3 or re.shape[0] % bc != 0:
+        raise ValueError(f"{what}: chunks of {bc} items do not divide the batch of "
+                         f"{tuple(re.shape)}")
+    return d, bc
+
+
+def _pieces_out(out, shape, like: torch.Tensor, what: str):
+    """The caller's output planes, checked, or two new ones."""
+    if out is None:
+        return like.new_empty(shape), like.new_empty(shape)
+    ore, oim = out
+    for o in (ore, oim):
+        if (tuple(o.shape) != tuple(shape) or not o.is_contiguous()
+                or o.dtype != like.dtype or o.device != like.device):
+            raise ValueError(f"{what}: out must be two contiguous {tuple(shape)} "
+                             f"{like.dtype} planes on {like.device}, got "
+                             f"{tuple(o.shape)} {o.dtype} on {o.device}")
+    return ore, oim
+
+
+def _plain_into(planes, out, what: str):
+    """A plain version's result, or written into the caller's ``out``."""
+    if out is None:
+        return planes
+    dst = _pieces_out(out, planes[0].shape, planes[0], what)
+    for o, t in zip(dst, planes):
+        o.copy_(t)
+    return dst
+
+
+def fft_rows_pieces_plain(re: torch.Tensor, im: torch.Tensor, pieces, inverse: bool = False,
+                          load: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2's pieced instances' plain version: :func:`fft_rows_plain` over
+    the rows of natural [B, h, n] planes, preceded by :func:`from_pieces`
+    (``load``) or followed by :func:`to_pieces` (the store), axis -1."""
+    d, bc = pieces
+    if load:
+        re, im = from_pieces(re, -1), from_pieces(im, -1)
+    shape = re.shape
+    ore, oim = fft_rows_plain(re.reshape(-1, shape[-1]), im.reshape(-1, shape[-1]), inverse)
+    ore, oim = ore.reshape(shape), oim.reshape(shape)
+    if load:
+        return ore, oim
+    return to_pieces(ore, d, bc, -1), to_pieces(oim, d, bc, -1)
+
+
+def fft_rows_pieces_cuda(re: torch.Tensor, im: torch.Tensor, pieces, inverse: bool = False,
+                         load: bool = False, out=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2 with one side in the distributed FFT's pieces, so that no copy
+    runs around its all-to-all. ``pieces`` = (d, bc).
+
+    The pieced store (``load=False``): natural rows [B, h, n] in; out
+    [B/bc, d, bc, h, n/d] (:func:`to_pieces` over axis -1), one launch. The
+    pieced load (``load=True``): [C, d, bc, h, loc] in, contiguous; out the
+    natural rows [C*bc, h, d*loc]. The same bits as :func:`fft_rows_cuda`
+    preceded, or followed, by the re-layout; the forward transform is
+    unnormalised, the inverse scales by 1/n. ``out``: two contiguous planes
+    of the result's shape to write into (a chunk's rows of a larger output).
+    On CUDA: power-of-two n from 256 to 4096, never in place. A CPU tensor
+    runs :func:`fft_rows_pieces_plain`.
+    """
+    what = "fft_rows_pieces"
+    n = re.shape[-1] * (pieces[0] if load else 1)
+    if not is_power_of_two(n):
+        raise ValueError(f"FFT size must be power of two, got {n}")
+    d, bc = _check_pieces(re, im, pieces, n, load, what)
+    if load:
+        chunks, _, _, h, loc = re.shape
+        shape = (chunks * bc, h, n)
+    else:
+        batch, h, _ = re.shape
+        shape = (batch // bc, d, bc, h, n // d)
+    if not (re.is_cuda or im.is_cuda):
+        return _plain_into(fft_rows_pieces_plain(re, im, (d, bc), inverse, load), out, what)
+    _check_rows_planes(re, im, n)
+    if not MIN_TURNED_N <= n <= MAX_TURNED_N:
+        raise ValueError(f"the pieced row FFT kernel takes n in {MIN_TURNED_N}.."
+                         f"{MAX_TURNED_N}, got n = {n}")
+    re, im = re.contiguous(), im.contiguous()
+    ore, oim = _pieces_out(out, shape, re, what)
+    rows = re.numel() // n
+    if rows:
+        _launch_rows_kernel(re, im, ore, oim, rows, n, bc * h, 3 if load else 4, inverse, d)
+    return ore, oim
+
+
+def fft_cols_pieces_plain(re: torch.Tensor, im: torch.Tensor, pieces, inverse: bool = False,
+                          fold=None, load: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K7's pieced instances' plain version: :func:`fft_cols_plain` of
+    natural [B, n, m] planes, preceded by :func:`from_pieces` (``load``) or
+    followed by :func:`to_pieces` (the store), axis -2."""
+    d, bc = pieces
+    if load:
+        return fft_cols_plain(from_pieces(re, -2), from_pieces(im, -2), inverse, fold)
+    ore, oim = fft_cols_plain(re, im, inverse, fold)
+    return to_pieces(ore, d, bc, -2), to_pieces(oim, d, bc, -2)
+
+
+def fft_cols_pieces_cuda(re: torch.Tensor, im: torch.Tensor, pieces, inverse: bool = False,
+                         fold=None, load: bool = False, out=None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K7 with one side in the distributed FFT's pieces, so that no copy
+    runs around its all-to-all. ``pieces`` = (d, bc).
+
+    The blocked store (``load=False``): natural [B, n, m] in; out
+    [B/bc, d, bc, n/d, m] (:func:`to_pieces` over axis -2), one launch. The
+    blocked load (``load=True``): [C, d, bc, n/d, m] in, contiguous; out
+    natural [C*bc, n, m]. ``fold`` = (cos, sin), two (n, m) grids in natural
+    row order, multiplied into the forward's output or the inverse's input
+    as :func:`fft_cols_cuda` does. The same bits as :func:`fft_cols_cuda`
+    followed, or preceded, by the re-layout. ``out``: two contiguous planes
+    of the result's shape to write into. On CUDA: power-of-two n from 256
+    to 4096, any m, the widest tile of n, never in place. A CPU tensor runs
+    :func:`fft_cols_pieces_plain`.
+    """
+    what = "fft_cols_pieces"
+    if load:
+        if re.ndim != 5:
+            raise ValueError(f"{what} loads [chunks, d, bc, n/d, m] pieces, got "
+                             f"{tuple(re.shape)}")
+        n, m = re.shape[1] * re.shape[3], re.shape[4]
+    else:
+        n, m = re.shape[-2:]
+    if not is_power_of_two(n) or not MAX_DFT_N < n <= MAX_COLS_N:
+        raise ValueError(f"the pieced column FFT takes a power-of-two n in "
+                         f"{2 * MAX_DFT_N}..{MAX_COLS_N}, got {n}")
+    d, bc = _check_pieces(re, im, pieces, n, load, what)
+    if fold is not None and any(tuple(g.shape) != (n, m) for g in fold):
+        raise ValueError(f"fold grids must be two ({n}, {m}) arrays, got "
+                         f"{[tuple(g.shape) for g in fold]}")
+    shape = ((re.shape[0] * bc, n, m) if load
+             else (re.shape[0] // bc, d, bc, n // d, m))
+    if not (re.is_cuda or im.is_cuda):
+        return _plain_into(fft_cols_pieces_plain(re, im, (d, bc), inverse, fold, load), out,
+                           what)
+    _check_cols_planes(re, im)
+    re, im = re.contiguous(), im.contiguous()
+    ore, oim = _pieces_out(out, shape, re, what)
+    batch = re.numel() // (n * m)
+    if batch:
+        _launch_cols_kernel(re, im, ore, oim, batch, n, m, widest_cols_tile(n), fold,
+                            inverse, 2 if load else 1, d, bc)
+    return ore, oim
+
+
 # ── K7: column FFT with a folded twiddle grid ────────────────────────
 
 
@@ -1142,8 +1342,13 @@ def cols_tile(n: int, m: int) -> int:
     [64, 1024, 1024] read 0.54 ms at 16 columns and 0.68 at 8,
     [64, 256, 4096] 0.46 at 32, 0.49 at 16 and 0.67 at 8, and
     [16, 4096, 1024], the same bytes with 4 columns, 1.62 ms."""
-    widest = min(COLS_TILES[-1], COLS_MAX_THREADS * MAX_RADIX // n)
-    return min(widest, max(COLS_TILES[0], next_power_of_two(m)))
+    return min(widest_cols_tile(n), max(COLS_TILES[0], next_power_of_two(m)))
+
+
+def widest_cols_tile(n: int) -> int:
+    """K7's widest tile at n: 32 columns to n = 512, then as many as the
+    1024 threads of a block hold. The pieced instances take only this one."""
+    return min(COLS_TILES[-1], COLS_MAX_THREADS * MAX_RADIX // n)
 
 
 def _check_cols_tile(n: int, tile: int) -> int:
@@ -1215,21 +1420,20 @@ def fft_cols_steps(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
     return (oim, ore) if inverse else (ore, oim)
 
 
-def _launch_fft_cols(re: torch.Tensor, im: torch.Tensor, inverse: bool, fold,
-                     donate: bool, tile: Optional[int] = None):
-    """Launch K7 on [B, n, m] planes. ``tile`` overrides :func:`cols_tile`:
-    the card's measurement of the tile widths uses it, no path does."""
+def _check_cols_planes(re: torch.Tensor, im: torch.Tensor) -> None:
     if re.dtype != torch.float32 or im.dtype != torch.float32:
         raise TypeError(f"the column FFT kernel takes float32 planes, got "
                         f"{re.dtype}/{im.dtype}")
     if not (re.is_cuda and im.is_cuda and re.device == im.device):
         raise ValueError("the column FFT kernel needs both planes on one CUDA device")
-    re, im = re.contiguous(), im.contiguous()
-    ore, oim = (re, im) if donate else (torch.empty_like(re), torch.empty_like(im))
-    batch, n, m = re.shape
-    tile = _check_cols_tile(n, cols_tile(n, m) if tile is None else tile)
-    if batch * m == 0:
-        return ore, oim
+
+
+def _launch_cols_kernel(re, im, ore, oim, batch: int, n: int, m: int, tile: int, fold,
+                        inverse: bool, layout: int = 0, pieces: int = 1,
+                        items: int = 1) -> None:
+    """One launch of K7 on contiguous float32 planes (``layout``: 0
+    natural, 1 stored in pieces, 2 loaded in pieces; ``pieces`` their
+    number, ``items`` the items a chunk)."""
     gc = gs = None
     if fold is not None:
         gc, gs = (torch.as_tensor(g).to(device=re.device, dtype=torch.float32)
@@ -1242,9 +1446,24 @@ def _launch_fft_cols(re: torch.Tensor, im: torch.Tensor, inverse: bool, fold,
             re.data_ptr(), im.data_ptr(), ore.data_ptr(), oim.data_ptr(),
             None if gc is None else gc.data_ptr(),
             None if gs is None else gs.data_ptr(), tw.data_ptr(),
-            _plan_code_of(n), batch, n, m, tile, int(inverse), stream)
+            _plan_code_of(n), batch, n, m, tile, int(inverse), layout, pieces, items,
+            stream)
     _build.check(lib, code, "fft_cols")
     LAUNCHES["fft_cols"] += 1
+
+
+def _launch_fft_cols(re: torch.Tensor, im: torch.Tensor, inverse: bool, fold,
+                     donate: bool, tile: Optional[int] = None):
+    """Launch K7 on [B, n, m] planes. ``tile`` overrides :func:`cols_tile`:
+    the card's measurement of the tile widths uses it, no path does."""
+    _check_cols_planes(re, im)
+    re, im = re.contiguous(), im.contiguous()
+    ore, oim = (re, im) if donate else (torch.empty_like(re), torch.empty_like(im))
+    batch, n, m = re.shape
+    tile = _check_cols_tile(n, cols_tile(n, m) if tile is None else tile)
+    if batch * m == 0:
+        return ore, oim
+    _launch_cols_kernel(re, im, ore, oim, batch, n, m, tile, fold, inverse)
     return ore, oim
 
 

@@ -8,7 +8,8 @@
   cut in place into D pieces, ``all_to_all_single`` on them, the received
   pieces concatenated along the concat axis in the joint axis' order.
   :func:`exchange` is its core, for a caller whose buffer is already
-  [D, ...] in pieces (K6's channel-blocked store).
+  [D, ...] in pieces: K6's channel-blocked store (the sharded PFB's turn)
+  and a chunk of ``dist_fft``'s pieced store (K7's forward, K2's inverse).
 * :func:`all_reduce` is ``psum``.
 
 An axis of one rank exchanges nothing: the JAX ``ppermute`` with perm
@@ -54,7 +55,10 @@ def exchange(send: torch.Tensor, mesh, axis, async_op: bool = False):
     [D, ...], piece j bound for position j of the joint axis, and the
     result is [D, ...], piece j from position j. A contiguous ``send`` goes
     to ``all_to_all_single`` as it is; the only copy is the reordering for
-    a joint axis that lists its ranks out of the group's order.
+    a joint axis that lists its ranks out of the group's order. Its callers
+    are the sharded PFB's turn (K6's channel-blocked store) and
+    ``dist_fft``/``dist_ifft``'s, one chunk of K7's or K2's pieced store a
+    call.
 
     ``async_op``: start the exchange and return a function that waits for
     it and returns the result."""

@@ -15,16 +15,25 @@ communicates exactly twice.
 The local transforms are the port's kernels: forward, K7 down the columns
 with the inter-stage twiddle folded into its store (CUDA float32, 128 < N2
 <= 4096), else ``ops.dispatch.fft`` over axis -2 and the twiddle multiply;
-then K2 along the rows through ``ops.dispatch``. Inverse: K2 inverse, the
-twiddle, the turn, and the inverse over axis -2 (K7 for N2 in 256..4096).
+then K2 along the rows. Inverse: K2 inverse along the rows, the turn, and
+K7 inverse down the columns with the twiddle folded into its load; off the
+kernels, ``ops.dispatch.ifft`` and the twiddle multiply before the turn.
 
 Comm/compute overlap: the turn is split into ``chunks`` pieces, each
 followed by its own local FFT, and every piece's transfer starts before
 the first transform, so chunk c+1's transfer does not wait on chunk c's
-transform. A piece is whole batch rows where the chunks divide the batch
-(no copy), else output rows forward and output columns inverse, as the
-JAX package splits them; each lands in its place of one output. Leading
-axes are batch.
+transform. Where both kernels run (CUDA float32, N2 and N1 in 256..4096,
+more than one rank) and the chunks divide the batch, the kernels write and
+read the all-to-all's pieces themselves, so no copy runs around it: the
+first kernel (K7 forward, K2 inverse) stores its output as [chunks, D, bc,
+rows, cols], piece j of a chunk bound for rank j, each chunk's slice is
+sent as it stands (``_comm.exchange``), and the second kernel (K2 forward,
+K7 inverse) loads the received [D, bc, rows, cols] and writes the chunk's
+natural rows of the output. Elsewhere a piece is whole batch rows where
+the chunks divide the batch, else output rows forward and output columns
+inverse, as the JAX package splits them, cut and joined by
+``_comm.all_to_all``; each lands in its place of one output. Leading axes
+are batch.
 """
 
 from __future__ import annotations
@@ -40,9 +49,10 @@ from ..core.complex import (ComplexArray, as_complex_array, is_power_of_two,
                             tensor_to_numpy)
 from ..ops.dispatch import fft as _fft, get_fft_impl, ifft as _ifft
 from ..ops.fft_big import _interstage_grids
-from ..ops.fft_cuda import MAX_COLS_N, MAX_DFT_N, fft_cols_cuda
+from ..ops.fft_cuda import (MAX_COLS_N, MAX_DFT_N, MAX_TURNED_N, MIN_TURNED_N,
+                            fft_cols_cuda, fft_cols_pieces_cuda, fft_rows_pieces_cuda)
 from ..ops.fft_fourstep import _twiddle_grid
-from ._comm import _write, all_to_all
+from ._comm import _write, all_to_all, exchange
 from .mesh import _extent, _flat_index
 
 __all__ = ["dist_fft", "dist_ifft", "dist_fft_shape",
@@ -75,29 +85,52 @@ def _twiddles(n2: int, n1: int, sign: float, dtype: torch.dtype,
 
 
 @functools.lru_cache(maxsize=8)
-def _fold_grids(n2: int, n1: int, off: int, width: int,
-                device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+def _fold_grids(n2: int, n1: int, off: int, width: int, device: torch.device,
+                sign: float = -1.0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Columns off:off+width of the natural-order float32 inter-stage grid
-    (``ops.fft_big._interstage_grids``, forward) that K7 folds in."""
+    (``ops.fft_big._interstage_grids``; -1 forward, +1 inverse) that K7
+    folds in."""
     return tuple(torch.from_numpy(np.ascontiguousarray(g[:, off:off + width])).to(device)
-                 for g in _interstage_grids(n2, n1, -1.0))
+                 for g in _interstage_grids(n2, n1, sign))
 
 
 def _cmul(re, im, c, s):
     return re * c - im * s, re * s + im * c
 
 
+def _turn_pieces(sr, si, mesh, axis, out_shape, transform):
+    """The chunked corner turn of send buffers the first kernel stored in
+    the all-to-all's pieces, [chunks, D, ...]: chunk c's [D, ...] slice is
+    sent as it stands (``_comm.exchange``), every chunk's exchange started
+    before the first transform; ``transform(received, out)`` then loads
+    chunk c's received [1, D, ...] pieces and writes its batch rows of the
+    output planes of ``out_shape`` in natural order. No copy on either side
+    of the collective."""
+    chunks = sr.shape[0]
+    started = [(exchange(sr[c], mesh, axis, async_op=True),
+                exchange(si[c], mesh, axis, async_op=True)) for c in range(chunks)]
+    ore, oim = sr.new_empty(out_shape), si.new_empty(out_shape)
+    step = out_shape[0] // chunks
+    for c, (wait_r, wait_i) in enumerate(started):
+        s = slice(c * step, (c + 1) * step)
+        transform((wait_r()[None], wait_i()[None]), (ore[s], oim[s]))
+    return ore, oim
+
+
 def _turn_and_transform(tr, ti, mesh, axis, d: int, chunks: int, split: int,
                         concat: int, out_shape, transform):
-    """The chunked corner turn of this rank's [B, ...] planes (the
+    """The chunked corner turn of this rank's natural [B, ...] planes (the
     all-to-all from ``split`` to ``concat``, both 1 or 2) into planes of
-    ``out_shape``, each chunk followed by ``transform`` of its piece.
+    ``out_shape``, each chunk followed by ``transform`` of its piece: the
+    route where the kernels do not write and read the pieces themselves
+    (:func:`_turn_pieces`), so ``_comm.all_to_all`` cuts and joins them.
 
     Every chunk's exchange starts before the first transform, so chunk c's
     transform runs while the later chunks are in flight. Where the chunks
     divide the batch B, a chunk is whole batch rows: its input, its piece
     and its place in the output are contiguous, the exchange writes into
-    the output, the transform runs in place there, and one rank (whose turn
+    the output (a copy of the received pieces into place, besides the send
+    buffer's), the transform runs in place there, and one rank (whose turn
     is the identity) transforms its input in place. Else a chunk is a
     slice of every batch row along the axis the turn leaves local (the
     output's rows forward, its columns inverse), copied out and back."""
@@ -129,10 +162,23 @@ def _turn_and_transform(tr, ti, mesh, axis, d: int, chunks: int, split: int,
 
 
 def _forward(xr: torch.Tensor, xi: torch.Tensor, mesh, axis, n2: int, n1: int,
-             d: int, chunks: int, cols_fold: bool):
+             d: int, chunks: int, cols_fold: bool, pieces: bool):
     b = xr.shape[:-2]
     loc = n1 // d
     n1_off = _flat_index(mesh, axis) * loc
+    nbat = math.prod(b)
+    if pieces:
+        # 1+2, and the send buffers: K7 with the twiddle W^(n1*k2) on its
+        # store, in the pieces [chunks, D, bc, N2/D, N1/D]. 3+4: each chunk
+        # sent as it stands, then K2 over its received pieces into its rows.
+        bc = nbat // chunks
+        sr, si = fft_cols_pieces_cuda(
+            xr.reshape(nbat, n2, loc), xi.reshape(nbat, n2, loc), (d, bc),
+            fold=_fold_grids(n2, n1, n1_off, loc, xr.device))
+        ore, oim = _turn_pieces(
+            sr, si, mesh, axis, (nbat, n2 // d, n1),
+            lambda got, out: fft_rows_pieces_cuda(*got, (d, bc), load=True, out=out))
+        return ore.reshape(b + (n2 // d, n1)), oim.reshape(b + (n2 // d, n1))
     if cols_fold:
         # Steps 1+2 fused: K7 with the twiddle W^(n1*k2) on its store.
         tr, ti = fft_cols_cuda(xr, xi, fold=_fold_grids(n2, n1, n1_off, loc, xr.device))
@@ -144,7 +190,6 @@ def _forward(xr: torch.Tensor, xi: torch.Tensor, mesh, axis, n2: int, n1: int,
         tr, ti = _cmul(o.real, o.imag, tc[:, n1_off:n1_off + loc], ts[:, n1_off:n1_off + loc])
     # 3+4. chunked corner turn (n2, n1/D) -> (n2/D, n1), each chunk
     # followed by its own row DFTs.
-    nbat = math.prod(b)
     ore, oim = _turn_and_transform(
         tr.reshape(nbat, n2, loc), ti.reshape(nbat, n2, loc), mesh, axis, d, chunks,
         1, 2, (nbat, n2 // d, n1), lambda z: _fft(z, axis=-1, donate=True))
@@ -152,8 +197,26 @@ def _forward(xr: torch.Tensor, xi: torch.Tensor, mesh, axis, n2: int, n1: int,
 
 
 def _inverse(pr: torch.Tensor, pi: torch.Tensor, mesh, axis, n2: int, n1: int,
-             d: int, chunks: int):
+             d: int, chunks: int, pieces: bool):
     b = pr.shape[:-2]
+    nbat = math.prod(b)
+    if pieces:
+        # 1, and the send buffers: K2 inverse over k1 with 1/N1, stored in
+        # the pieces [chunks, D, bc, N2/D, N1/D] (the caller's input is
+        # not written). 3+2+4: each chunk sent as it stands, then K7
+        # inverse over n2 with the twiddle W^(+n1*k2) on its load (the
+        # multiply commutes with the turn: this rank's n1 columns of the
+        # grid); the two inverse normalisations compose to exactly 1/N.
+        bc = nbat // chunks
+        loc = n1 // d
+        sr, si = fft_rows_pieces_cuda(pr.reshape(nbat, n2 // d, n1),
+                                      pi.reshape(nbat, n2 // d, n1), (d, bc), inverse=True)
+        grids = _fold_grids(n2, n1, _flat_index(mesh, axis) * loc, loc, pr.device, 1.0)
+        ore, oim = _turn_pieces(
+            sr, si, mesh, axis, (nbat, n2, loc),
+            lambda got, out: fft_cols_pieces_cuda(*got, (d, bc), inverse=True, fold=grids,
+                                                  load=True, out=out))
+        return ore.reshape(b + (n2, loc)), oim.reshape(b + (n2, loc))
     # 1. local inverse DFT over k1 with 1/N1 (full rows of this rank's k2
     # block). The input is the caller's: not donated.
     o = _ifft(ComplexArray(pr, pi), axis=-1)
@@ -164,7 +227,6 @@ def _inverse(pr: torch.Tensor, pi: torch.Tensor, mesh, axis, n2: int, n1: int,
     # 3+4. chunked corner turn (n2/D, n1) -> (n2, n1/D), each chunk followed
     # by its own inverse DFT over n2; the two inverse normalisations
     # compose to exactly 1/N.
-    nbat = math.prod(b)
     ore, oim = _turn_and_transform(
         tr.reshape(nbat, n2 // d, n1), ti.reshape(nbat, n2 // d, n1), mesh, axis, d, chunks,
         2, 1, (nbat, n2, n1 // d), lambda z: _ifft(z, axis=-2, donate=True))
@@ -179,10 +241,10 @@ def _inverse(pr: torch.Tensor, pi: torch.Tensor, mesh, axis, n2: int, n1: int,
 # t_fft2) / o), rounded to the nearest power of two that divides the
 # chunked extent, capped at 8. The defaults are the H100's ("NVIDIA H100
 # 80GB HBM3, 700.00 W"). On four cards at [256, 1024, 256] a rank they
-# choose 1 (the model counts one batch row's samples, not the batch's):
-# 3.17 ms a call, against 2.97 at 2 chunks, 4.03 at 4 (2.99-4.84 over
-# four runs) and 7.28 at 8; the inverse, also at 1, 4.55 against 4.20-4.26
-# at 4 (scripts/turn_rates.py, PERF.md sections 6 and 7):
+# choose 1 (the model counts one batch row's samples, not the batch's),
+# the fastest depth of the pieced turn: 2.24 ms a call, against 2.31-2.34
+# at 2 chunks and 2.67-2.85 at 4; the inverse 2.33-2.35, against 2.42-2.44
+# and 2.77-3.23 (scripts/turn_rates.py, PERF.md section 6):
 _A2A_BW = 450e9                 # B/s a card sends: NVLink 4, 900 GB/s both
                                 # ways (published), 450 GB/s each way
 _FFT2_RATE = 65536 * 1024 / 0.3693e-3   # complex samples/s: K2 on [65536,
@@ -263,15 +325,31 @@ def dist_fft(x, mesh, axis: str = "x", inverse: bool = False,
         raise ValueError(
             f"chunks={chunks} must divide the local corner-turn extent "
             f"{extent}")
+    pieces = _pieces_route(xc.real, n2, n1, d, chunks)
     if inverse:
-        ore, oim = _inverse(xc.real, xc.imag, mesh, axis, n2, n1, d, chunks)
+        ore, oim = _inverse(xc.real, xc.imag, mesh, axis, n2, n1, d, chunks, pieces)
     else:
-        impl = get_fft_impl()
-        cols_fold = (MAX_DFT_N < n2 <= MAX_COLS_N and is_power_of_two(n2)
-                     and xc.real.dtype == torch.float32
-                     and (impl == "cuda" or (impl == "auto" and xc.real.is_cuda)))
-        ore, oim = _forward(xc.real, xc.imag, mesh, axis, n2, n1, d, chunks, cols_fold)
+        ore, oim = _forward(xc.real, xc.imag, mesh, axis, n2, n1, d, chunks,
+                            _on_k7(xc.real, n2), pieces)
     return ComplexArray(ore, oim)
+
+
+def _on_k7(x: torch.Tensor, n2: int) -> bool:
+    """Whether the column stage runs K7 with the twiddle folded in: float32,
+    power-of-two 128 < N2 <= 4096, impl "cuda", or "auto" on a CUDA tensor."""
+    impl = get_fft_impl()
+    return (MAX_DFT_N < n2 <= MAX_COLS_N and is_power_of_two(n2)
+            and x.dtype == torch.float32
+            and (impl == "cuda" or (impl == "auto" and x.is_cuda)))
+
+
+def _pieces_route(x: torch.Tensor, n2: int, n1: int, d: int, chunks: int) -> bool:
+    """Whether K7 and K2 write and read the all-to-all's pieces themselves
+    (:func:`_turn_pieces`): K7 runs, N1 lies in K2's pieced range
+    (256..4096), there is a turn (one rank's is the identity, and the route
+    in place stays there), and the chunks are whole batch rows."""
+    return (_on_k7(x, n2) and MIN_TURNED_N <= n1 <= MAX_TURNED_N and is_power_of_two(n1)
+            and d > 1 and math.prod(x.shape[:-2]) % chunks == 0)
 
 
 def dist_ifft(p, mesh, axis: str = "x",

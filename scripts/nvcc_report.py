@@ -4,17 +4,21 @@ source, all started together) and report, for the checkout at --root, how
 long each source took and what each kernel instance uses: registers, spill
 stores and loads, as `nvcc -Xptxas -v` prints them.
 
-    python3 scripts/nvcc_report.py [--root .] [--only pfb fft_cols]
+    python3 scripts/nvcc_report.py [--root .] [--only pfb fft_cols] [--instances]
 
 Needs nvcc (the CUDA toolkit), no card. Objects go to a temporary directory.
 Prints one JSON object per source, then one line per group of instances
-with the same numbers. Imports nothing of JAX.
+with the same numbers; with --instances also one JSON line per instance:
+its kernel and template arguments, registers, spills and a digest of its
+SASS (cuobjdump -sass), so that two checkouts' lines compare instance by
+instance. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import hashlib
 import json
 import os
 import re
@@ -29,6 +33,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", default=".", help="checkout that holds pragma_dsp_tpu_torch/")
     parser.add_argument("--only", nargs="*", default=[], help="source stems to report (all)")
+    parser.add_argument("--instances", action="store_true",
+                        help="one line per instance, with a digest of its SASS")
     args = parser.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     from pragma_dsp_tpu_torch.ops import _build
@@ -52,6 +58,13 @@ def main() -> int:
             t.start()
         for t in threads:
             t.join()
+        sass = {}
+        if args.instances:
+            cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+            for src in sources:
+                obj = os.path.join(tmp, src.stem + ".o")
+                if os.path.exists(obj):
+                    sass[src.stem] = sass_digests(cuobjdump, obj)
     failed = [stem for stem, (rc, _) in logs.items() if rc != 0]
     for stem in failed:
         print(f"nvcc failed on {stem}:\n{logs[stem][1]}", file=sys.stderr)
@@ -70,7 +83,45 @@ def main() -> int:
         for (regs, stores, loads), count in sorted(uses.items()):
             print(f"  {count} instance(s): {regs} registers, spill {stores} B stores, "
                   f"{loads} B loads", flush=True)
+        if args.instances:
+            rows = []
+            for entry in entries:
+                name = re.search(r"'(\w+)'", entry).group(1)
+                regs = re.search(r"Used (\d+) registers", entry)
+                spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", entry)
+                rows.append({"instance": instance_key(name), "registers": int(regs.group(1)),
+                             "spill_stores": int(spill.group(1)),
+                             "spill_loads": int(spill.group(2)),
+                             "sass": sass.get(src.stem, {}).get(instance_key(name))})
+            for row in sorted(rows, key=lambda r: r["instance"]):
+                print(json.dumps(row), flush=True)
     return 0
+
+
+def instance_key(mangled: str) -> str:
+    """kernel<template arguments> from a mangled name (the names nvcc gives
+    an anonymous namespace differ from build to build)."""
+    for run in re.finditer(r"\d+", mangled):
+        for k in range(len(run.group())):      # the length may end a longer run of digits
+            start = run.end()
+            name = mangled[start:start + int(run.group()[k:])]
+            args = re.match(r"I((?:Li-?\d+E)+)E", mangled[start + len(name):])
+            if name.endswith("_kernel") and args:
+                return f"{name}<{','.join(re.findall(r'Li(-?\d+)E', args.group(1)))}>"
+    return re.sub(r"_INTERNAL_[0-9a-f]+_", "_INTERNAL_", mangled)
+
+
+def sass_digests(cuobjdump: str, obj: str) -> dict:
+    """A digest of each function's SASS in an object."""
+    text = subprocess.run([cuobjdump, "-sass", obj], capture_output=True, text=True,
+                          check=True).stdout
+    out = {}
+    for part in text.split("Function : ")[1:]:
+        name, _, body = part.partition("\n")
+        # cuobjdump pads its columns by the longest name: only the code counts
+        body = re.sub(r"\s+", " ", body.split("\n\t\t..........")[0])
+        out[instance_key(name.strip())] = hashlib.sha256(body.encode()).hexdigest()[:16]
+    return out
 
 
 if __name__ == "__main__":

@@ -500,6 +500,67 @@ def test_row_k2_unchanged_beside_the_turned_store(dev):
         fft_cuda.fft_rows_turned_cuda(re[:8].view(2, 4, 1024), im[:8].view(2, 4, 1024))
 
 
+def _launched(fn):
+    for key in fft_cuda.LAUNCHES:
+        fft_cuda.LAUNCHES[key] = 0
+    out = fn()
+    return out, {k: v for k, v in fft_cuda.LAUNCHES.items() if v}
+
+
+@pytest.mark.parametrize("n,m,d,chunks,bc", [(1024, 256, 4, 1, 8), (256, 64, 4, 2, 3),
+                                             (4096, 24, 8, 2, 2), (512, 100, 2, 1, 3)])
+def test_k7_pieces_equal_natural_re_laid(dev, n, m, d, chunks, bc):
+    """K7's blocked store is its natural instance followed by the
+    re-layout, and its blocked load the re-layout undone followed by it,
+    with the grid, bit for bit, one launch each; and both agree with the
+    plain version (>= 125 dB against float64 is phase 14's; here >= 110)."""
+    rng = np.random.default_rng(n + m)
+    re, im = (torch.from_numpy(rng.standard_normal((chunks * bc, n, m)).astype(np.float32))
+              .to(dev) for _ in range(2))
+    grid = tuple(torch.from_numpy(rng.standard_normal((n, m)).astype(np.float32)).to(dev)
+                 for _ in range(2))
+    store, moved = _launched(lambda: fft_cuda.fft_cols_pieces_cuda(re, im, (d, bc), fold=grid))
+    assert moved == {"fft_cols": 1}
+    natural = fft_cuda.fft_cols_cuda(re, im, fold=grid)
+    for k in range(2):
+        assert torch.equal(store[k], fft_cuda.to_pieces(natural[k], d, bc, -2))
+    pieced = [fft_cuda.to_pieces(t, d, bc, -2) for t in (re, im)]
+    load, moved = _launched(lambda: fft_cuda.fft_cols_pieces_cuda(
+        *pieced, (d, bc), inverse=True, fold=grid, load=True))
+    assert moved == {"fft_cols": 1}
+    natural = fft_cuda.fft_cols_cuda(re, im, inverse=True, fold=grid)
+    for k in range(2):
+        assert torch.equal(load[k], natural[k])
+    plain = fft_cuda.fft_cols_plain(re.double(), im.double(), inverse=True,
+                                    fold=tuple(g.double() for g in grid))
+    assert _dev_snr(plain, load) >= 110.0
+
+
+@pytest.mark.parametrize("n,d,chunks,bc,h", [(1024, 4, 2, 4, 16), (256, 4, 1, 3, 5),
+                                             (4096, 2, 2, 2, 3), (512, 8, 1, 2, 7)])
+def test_k2_pieces_equal_natural_re_laid(dev, n, d, chunks, bc, h):
+    """K2's pieced load is the re-layout undone followed by its row
+    instance, its pieced store the row instance followed by the re-layout,
+    forward and inverse, bit for bit, one launch each."""
+    rng = np.random.default_rng(n + h)
+    re, im = (torch.from_numpy(rng.standard_normal((chunks * bc, h, n)).astype(np.float32))
+              .to(dev) for _ in range(2))
+    pieced = [fft_cuda.to_pieces(t, d, bc, -1) for t in (re, im)]
+    for inverse in (False, True):
+        rows = [t.reshape(chunks * bc, h, n)
+                for t in fft_cuda.fft_rows_cuda(re.reshape(-1, n), im.reshape(-1, n), inverse)]
+        load, moved = _launched(lambda: fft_cuda.fft_rows_pieces_cuda(
+            *pieced, (d, bc), inverse, load=True))
+        assert moved == {"fft_rows": 1}
+        store, moved = _launched(lambda: fft_cuda.fft_rows_pieces_cuda(re, im, (d, bc), inverse))
+        assert moved == {"fft_rows": 1}
+        for k in range(2):
+            assert torch.equal(load[k], rows[k])
+            assert torch.equal(store[k], fft_cuda.to_pieces(rows[k], d, bc, -1))
+    with pytest.raises(ValueError, match="pieced row FFT kernel takes n in"):
+        fft_cuda.fft_rows_pieces_cuda(re[..., :128], im[..., :128], (d, bc))
+
+
 def test_dispatch_axes_on_cuda(dev):
     """Axis -2 of a wide operand runs K7 in place of movedim + K2; a long
     transform over axis 0 runs the two-kernel route on a moved copy."""

@@ -149,6 +149,13 @@ CASES = {
     "fft_f32_batch_chunks_1d": _case("fft", dtype="f32", tol=110.0, n=4096, chunks=2, batch=2),
     "fft_f32_cols_fold_1d": _case("fft", dtype="f32", tol=110.0, n=1 << 16, chunks=1,
                                   fold=True),
+    # the pieced turn: K7 stores the all-to-all's pieces and K2 loads them
+    # (forward), K2 inverse stores them and K7 loads them with the grid
+    # (inverse); their plain versions on the CPU under set_fft_impl("cuda")
+    "fft_f32_pieces_c1_1d": _case("fft", dtype="f32", tol=110.0, n=1 << 16, chunks=1,
+                                  batch=4, fold=True),
+    "fft_f32_pieces_c2_1d": _case("fft", dtype="f32", tol=110.0, n=1 << 16, chunks=2,
+                                  batch=4, fold=True),
     # the halo-coverage guards and the other ValueErrors
     "err_fir_history": _case("fir", shape=(4 * 64,), taps=127, method="auto", err=True),
     "err_spec_overlap": _case("spec", shape=(4 * 64,), n_fft=128, hop=32, pad_tail=False,
@@ -254,7 +261,7 @@ def _out_layout(spec, field):
     if e == "pow":
         return ("same",)
     if e == "fft":
-        return ("cat", -2) if field == "p" else ("cat", -1)
+        return ("cat", -2) if field in ("p", "copy_p") else ("cat", -1)
     return ("cat", -1)
 
 
@@ -398,6 +405,43 @@ def _port_case(spec, x, mesh, axis):
     raise ValueError(e)
 
 
+PIECES_CASES = ["fft_f32_cols_fold_1d", "fft_f32_pieces_c1_1d", "fft_f32_pieces_c2_1d"]
+
+
+def _copy_route(spec, x, mesh, axis):
+    """The case through the copy route (the all-to-all cuts and joins the
+    pieces around natural-order kernels): dist_fft's route choice held to
+    "no pieces" for the call."""
+    import importlib
+
+    mod = importlib.import_module("pragma_dsp_tpu_torch.parallel.dist_fft")
+    chosen = mod._pieces_route
+    mod._pieces_route = lambda *a: False
+    try:
+        return _port_case(spec, x, mesh, axis)
+    finally:
+        mod._pieces_route = chosen
+
+
+def _routes_taken(spec, x, mesh, axis):
+    """The case's result and the route choices its calls made (True: the
+    pieced turn)."""
+    import importlib
+
+    mod = importlib.import_module("pragma_dsp_tpu_torch.parallel.dist_fft")
+    chosen, taken = mod._pieces_route, []
+
+    def record(*a):
+        taken.append(chosen(*a))
+        return taken[-1]
+
+    mod._pieces_route = record
+    try:
+        return _port_case(spec, x, mesh, axis), taken
+    finally:
+        mod._pieces_route = chosen
+
+
 def _rank_main(rank: int, world: int, folder: str) -> None:
     """One rank of the module's port run: every case, the dry run, the
     barrier that times out."""
@@ -409,7 +453,7 @@ def _rank_main(rank: int, world: int, folder: str) -> None:
               "2d": (pp.make_mesh((2, 2), ("host", "chip"), device_type="cpu"),
                      ("host", "chip"))}
     meshes["batch"] = (meshes["2d"][0], "chip")
-    arrays, report = {}, {"errors": {}, "times": {}, "turned": {}}
+    arrays, report = {}, {"errors": {}, "times": {}, "turned": {}, "pieces": {}}
     for name, spec in CASES.items():
         mesh, axis = meshes[spec["mesh"]]
         x = _t(_local(spec, _input(name, spec), rank, _in_axis(spec)))
@@ -417,7 +461,12 @@ def _rank_main(rank: int, world: int, folder: str) -> None:
             dispatch.set_fft_impl("cuda")       # K7's or K6's plain version on the CPU
         t0 = time.perf_counter()
         try:
-            out = _port_case(spec, x, mesh, axis)
+            if name in PIECES_CASES:
+                out, report["pieces"][name] = _routes_taken(spec, x, mesh, axis)
+                for field, v in _copy_route(spec, x, mesh, axis).items():
+                    arrays[f"{name}|copy_{field}"] = _np(v)
+            else:
+                out = _port_case(spec, x, mesh, axis)
         except ValueError as exc:
             report["errors"][name] = str(exc)
             continue
@@ -751,6 +800,29 @@ def test_dist_fft_matches_numpy(ranks):
                                                        torch.from_numpy(p.imag.copy())))
         np.testing.assert_allclose(got, np.fft.fft(x.reshape(-1)), rtol=0, atol=1e-9)
         np.testing.assert_allclose(_port_global(ranks, name, "rt"), x, rtol=0, atol=F64_TOL)
+
+
+# The inverse's largest difference from the copy route, in SNR against
+# it: the grid rides K7's load (float32 rounded once from the int64-reduced
+# phase) in place of the copy route's float64-built twiddle (rounded once
+# from k2*n1 in float64) and its multiply; measured on these cases'
+# gathered roundtrips 138.4 dB, bit-equal at one rank in eight.
+PIECES_RT_DB = 110.0
+
+
+@pytest.mark.parametrize("name", PIECES_CASES)
+def test_pieced_turn_against_the_copy_route(ranks, name):
+    """Where K7 and K2 write and read the all-to-all's pieces (their plain
+    versions on the gloo ranks), every rank took that route both ways; the
+    forward equals the copy route's bit for bit (the same arithmetic, only
+    where the stores land differs), and the roundtrip is within the f32
+    tolerance of it."""
+    for r in range(WORLD):
+        assert ranks()["reports"][r]["pieces"][name] == [True, True], r
+    np.testing.assert_array_equal(_port_global(ranks, name, "p"),
+                                  _port_global(ranks, name, "copy_p"))
+    got, copy = _port_global(ranks, name, "rt"), _port_global(ranks, name, "copy_rt")
+    assert _snr_db(copy, got) >= PIECES_RT_DB, _snr_db(copy, got)
 
 
 def test_barrier_whose_peer_never_arrives_times_out(ranks):
