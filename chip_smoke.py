@@ -61,11 +61,15 @@ Phases (one line each; any failed gate exits non-zero):
      send buffer) the same way and bit-equal to the natural store
      rearranged, and both stores against their plain version on 1e8
      complex samples;
- 14. K7 (column FFT) forward and inverse, with and without the folded grid,
-     against float64 numpy, its roundtrip and its plain version in float64,
-     a ragged width, donate in place, and at every n from 256 to 4096
-     (batch 3, a ragged and a whole number of tiles) against its
-     step-by-step version in float64;
+ 14. K7 (column FFT) forward and inverse, with no twiddle, a read grid and
+     the generated twiddle (fft_cuda.Twiddle), against float64 numpy, its
+     roundtrip and its plain version in float64, a ragged width, donate in
+     place; at every n from 256 to 4096 (batch 3, a ragged and a whole
+     number of tiles), every (tile, cluster) instance against its
+     step-by-step version in float64, the launched one against its plain
+     version, float64 numpy and its roundtrip, and its pieced store and
+     load torch.equal to it re-laid; the generated twiddle read back
+     against the float64 grid in units of 2^-24;
  15. the large FFT at full width: 2^20 points (K7 then K2) against float64
      numpy, its roundtrip, 2^16, 2^21, 2^22 (2^24 printed); at each, fft_big
      and ifft_big (K2's turned store and load) torch.equal to the permuted
@@ -80,9 +84,11 @@ Phases (one line each; any failed gate exits non-zero):
      turned load), the forward pair, the natural-order FFT and inverse
      beside the permuted route and the transpose, the roundtrip, the plain
      versions, torch.fft.fft and torch.fft.ifft as the library yardstick
-     (never on a path; K7 with and without the fold
-     beside torch.fft.fft with and without the grid multiply), the tile
-     widths at n = 1024 and n = 256, and axis -2 through K7 against
+     (never on a path; K7 with and without the twiddle
+     beside torch.fft.fft with and without the grid multiply), every
+     (tile, cluster) instance at every n, K7 forward and inverse at
+     [64, 1024, 1024] and forward at [16, 4096, 1024] beside their bound,
+     plain version and library call, and axis -2 through K7 against
      movedim + K2;
  18. each kernel's time beside its bound (bytes over 3.35 TB/s or operations
      over 67 TFLOP/s, whichever is larger; K1, K3 and K4 counted as real-input
@@ -90,7 +96,7 @@ Phases (one line each; any failed gate exits non-zero):
      amp+phase instance beside it), its plain version and the library; K6's blocked store
      beside its own bound, and K2's turned store and load on the large
      FFT's rows beside theirs; the pieced instances dist_fft's turn runs
-     (K7's blocked store and load with the grid, K2's pieced load and
+     (K7's blocked store and load with the twiddle, K2's pieced load and
      store) at the 4-card cell's rank shape, [256, 1024, 256] with D = 4,
      against their plain version, torch.equal to the natural instance with
      the re-layout, and timed launched and queued beside it (listed under
@@ -205,6 +211,10 @@ K7_PLAIN_GATE_DB = 125.0  # against its plain version in float64 on the card
 K7_ALL_N = tuple(1 << k for k in range(8, 13))    # every n K7 takes
 K7_ALL_M = (100, 64)     # a ragged last tile; a whole number of tiles of any width
 K7_ALL_BATCH = 3
+K7_TWIDDLE_COLS = 1024   # a generated twiddle's N = n * 1024, on columns from ...
+K7_TWIDDLE_OFF = 3       # ... this one (a rank's block of a larger transform)
+K7_TWIDDLE_UNITS = 4.0   # its worst error against the float64 grid, units of 2^-24
+K7_PIECES = 4            # the pieced instances' D at every n (chunks of K7_ALL_BATCH)
 BIG_N = 1 << 20          # BASELINE.json's 1M-point FFT, bench.py:289-305
 BIG_MORE = (1 << 16, 1 << 21, 1 << 22)
 BIG_PRINT = 1 << 24      # printed, not gated
@@ -216,8 +226,8 @@ LONG_TAPS = 4000         # its default overlap-save block is 32768 points
 LONG_FIR_LEN = 100000
 LONG_CHANNELS = 32768
 LONG_TPB, LONG_FRAMES = 2, 16
-K7_TILES = (8, 16)       # columns per block tried at n = 1024 ([64, 1024, 1024])
-K7_TILES_256 = (8, 16, 32)   # and at n = 256 ([64, 256, 4096])
+# K7's instances timed at [64, 2^20] viewed as [B, n, 2^26/(B*n)]: each n
+K7_BY_INSTANCE = ((64, 1024), (16, 4096), (32, 2048), (64, 256), (64, 512))
 C34_GATE_DB = 100.0      # bench.py:239 and :263, configs 3 and 4
 C3_CHUNK = 4800          # upfirdn_step chunks at 147/160: a whole number of 160s
 CASCADE = ((3, 4), (7, 8), (7, 5))   # 147/160 in three stages
@@ -1377,7 +1387,8 @@ def main() -> int:
         "store rearranged (torch.equal)")
     del kb, pw, xwide, fwide, fwide_history, fwide_after
 
-    # 14. K7 alone: forward and inverse, with and without the folded grid
+    # 14. K7 alone: forward and inverse, with no twiddle, a read grid and the
+    # generated twiddle (the large FFT's, fft_cuda.Twiddle)
     def planes_snr(ref: np.ndarray, pair) -> float:
         return csnr_db(ref, host(pair[0]), host(pair[1]))
 
@@ -1394,15 +1405,18 @@ def main() -> int:
         g = grid[0].astype(np.float64) + 1j * grid[1]
         fold = tuple(cuda(a) for a in grid)
         fold64 = tuple(a.double() for a in fold)
+        twiddle = {sign: fft_cuda.Twiddle(n * K7_TWIDDLE_COLS, K7_TWIDDLE_OFF, sign)
+                   for sign in (-1.0, 1.0)}
         label = f"K7 [{batch}, {n}, {m}]"
         worst = {"f64": np.inf, "plain": np.inf}
         for inverse in (False, True):
-            for use in (None, fold):
+            tw = twiddle[1.0 if inverse else -1.0]
+            tg = tw.grids(n, m)
+            for use, use64, mul in ((None, None, 1.0), (fold, fold64, g),
+                                    (tw, tw, tg[0] + 1j * tg[1])):
                 got = fft_cuda.fft_cols_cuda(re, im, inverse, use)
-                plain = fft_cuda.fft_cols_plain(re.double(), im.double(), inverse,
-                                                None if use is None else fold64)
+                plain = fft_cuda.fft_cols_plain(re.double(), im.double(), inverse, use64)
                 torch.cuda.synchronize()
-                mul = 1.0 if use is None else g
                 ref = (np.fft.ifft(zf * mul, axis=-2) if inverse
                        else np.fft.fft(zf, axis=-2) * mul)
                 gate(got[0].shape == re.shape and bool(torch.isfinite(got[0]).all())
@@ -1413,15 +1427,18 @@ def main() -> int:
         conj = (fold[0], -fold[1])
         back_fold = fft_cuda.fft_cols_cuda(*fft_cuda.fft_cols_cuda(re, im, fold=fold),
                                            inverse=True, fold=conj)
-        s_rt = min(planes_snr(zf, back), planes_snr(zf, back_fold))
-        kept = fft_cuda.fft_cols_cuda(re, im, fold=fold)
-        dre, dim_ = re.clone(), im.clone()
-        out = fft_cuda.fft_cols_cuda(dre, dim_, fold=fold, donate=True)
-        gate(out[0].data_ptr() == dre.data_ptr() and out[1].data_ptr() == dim_.data_ptr()
-             and torch.equal(out[0], kept[0]) and torch.equal(out[1], kept[1]),
-             f"{label}: donate=True did not write in place or differs")
-        say(f"[14] {label}, forward/inverse x fold/no fold: worst SNR vs f64 "
-            f"{worst['f64']:.1f} dB (gate >= {K7_GATE_DB}), vs plain in float64 "
+        back_tw = fft_cuda.fft_cols_cuda(*fft_cuda.fft_cols_cuda(re, im, fold=twiddle[-1.0]),
+                                         inverse=True, fold=twiddle[1.0])
+        s_rt = min(planes_snr(zf, back), planes_snr(zf, back_fold), planes_snr(zf, back_tw))
+        for use in (fold, twiddle[-1.0]):
+            kept = fft_cuda.fft_cols_cuda(re, im, fold=use)
+            dre, dim_ = re.clone(), im.clone()
+            out = fft_cuda.fft_cols_cuda(dre, dim_, fold=use, donate=True)
+            gate(out[0].data_ptr() == dre.data_ptr() and out[1].data_ptr() == dim_.data_ptr()
+                 and torch.equal(out[0], kept[0]) and torch.equal(out[1], kept[1]),
+                 f"{label}: donate=True did not write in place or differs")
+        say(f"[14] {label}, forward/inverse x no twiddle/read grid/generated twiddle: worst "
+            f"SNR vs f64 {worst['f64']:.1f} dB (gate >= {K7_GATE_DB}), vs plain in float64 "
             f"{worst['plain']:.1f} dB (gate >= {K7_PLAIN_GATE_DB}), roundtrip "
             f"{s_rt:.1f} dB (gate >= {K7_RT_GATE_DB}); donate in place and equal")
         gate(worst["f64"] >= K7_GATE_DB, f"{label}: SNR vs f64 {worst['f64']:.1f} dB")
@@ -1431,33 +1448,98 @@ def main() -> int:
     k7_all = {}
     gen = torch.Generator(device=dev).manual_seed(SEED)
     for n in K7_ALL_N:
-        worst = np.inf
+        worst = {"steps": np.inf, "plain": np.inf, "f64": np.inf, "rt": np.inf}
         for m in K7_ALL_M:
             re = torch.randn((K7_ALL_BATCH, n, m), generator=gen, device=dev)
             im = torch.randn((K7_ALL_BATCH, n, m), generator=gen, device=dev)
+            zf = host(re).astype(np.float64) + 1j * host(im)
             fold = tuple(torch.randn((n, m), generator=gen, device=dev) for _ in range(2))
             fold64 = tuple(a.double() for a in fold)
             for inverse in (False, True):
-                for use in (None, fold):
+                tw = fft_cuda.Twiddle(n * K7_TWIDDLE_COLS, K7_TWIDDLE_OFF,
+                                      1.0 if inverse else -1.0)
+                for use, use64 in ((None, None), (fold, fold64), (tw, tw)):
+                    for config in fft_cuda.cols_instances(n):
+                        got = fft_cuda._launch_fft_cols(re, im, inverse, use, False, config)
+                        ref = fft_cuda.fft_cols_steps(re.double(), im.double(), inverse,
+                                                      use64, config)
+                        gate(bool(torch.isfinite(got[0]).all())
+                             and bool(torch.isfinite(got[1]).all()),
+                             f"K7 n={n}, m={m}, {config}: non-finite")
+                        worst["steps"] = min(worst["steps"], dev_snr_db(ref, got))
                     got = fft_cuda.fft_cols_cuda(re, im, inverse, use)
-                    ref = fft_cuda.fft_cols_steps(re.double(), im.double(), inverse,
-                                                  None if use is None else fold64)
-                    gate(bool(torch.isfinite(got[0]).all())
-                         and bool(torch.isfinite(got[1]).all()),
-                         f"K7 n={n}, m={m}: non-finite")
-                    worst = min(worst, dev_snr_db(ref, got))
+                    plain = fft_cuda.fft_cols_plain(re.double(), im.double(), inverse, use64)
+                    worst["plain"] = min(worst["plain"], dev_snr_db(plain, got))
+                    if use is not fold:
+                        mul = 1.0
+                        if use is tw:
+                            mul = tw.grids(n, m)[0] + 1j * tw.grids(n, m)[1]
+                        ref64 = (np.fft.ifft(zf * mul, axis=-2) if inverse
+                                 else np.fft.fft(zf, axis=-2) * mul)
+                        worst["f64"] = min(worst["f64"], planes_snr(ref64, got))
                     dre, dim_ = re.clone(), im.clone()
                     out = fft_cuda.fft_cols_cuda(dre, dim_, inverse, use, donate=True)
                     gate(out[0].data_ptr() == dre.data_ptr()
                          and torch.equal(out[0], got[0]) and torch.equal(out[1], got[1]),
                          f"K7 n={n}, m={m}: donated differs from not donated")
+                # the pieced store and load: the natural instance re-laid
+                pieces = (K7_PIECES, K7_ALL_BATCH)
+                if inverse:
+                    pin = tuple(fft_cuda.to_pieces(t, *pieces, -2) for t in (re, im))
+                    got = fft_cuda.fft_cols_pieces_cuda(*pin, pieces, inverse=True, fold=tw,
+                                                        load=True)
+                    want = fft_cuda.fft_cols_cuda(re, im, True, tw)
+                else:
+                    got = fft_cuda.fft_cols_pieces_cuda(re, im, pieces, fold=tw)
+                    want = tuple(fft_cuda.to_pieces(t, *pieces, -2)
+                                 for t in fft_cuda.fft_cols_cuda(re, im, fold=tw))
+                gate(all(torch.equal(a, b) for a, b in zip(got, want)),
+                     f"K7 n={n}, m={m}: the pieced {'load' if inverse else 'store'} is not "
+                     "the natural instance re-laid")
+            tw = (fft_cuda.Twiddle(n * K7_TWIDDLE_COLS, K7_TWIDDLE_OFF, -1.0),
+                  fft_cuda.Twiddle(n * K7_TWIDDLE_COLS, K7_TWIDDLE_OFF, 1.0))
+            back = fft_cuda.fft_cols_cuda(*fft_cuda.fft_cols_cuda(re, im, fold=tw[0]),
+                                          inverse=True, fold=tw[1])
+            worst["rt"] = min(worst["rt"], planes_snr(zf, back))
         k7_all[n] = worst
-        gate(worst >= STEPS_GATE_DB, f"K7 n={n}: vs steps {worst:.1f} dB")
-    say(f"[14] K7 [{K7_ALL_BATCH}, n, m] at every n, m in {K7_ALL_M}, forward/inverse x "
-        f"fold/no fold: worst SNR vs its step-by-step version in float64 (gate >= "
-        f"{STEPS_GATE_DB}): " + ", ".join(f"{k} {v:.1f}" for k, v in k7_all.items())
-        + "; donated equals not donated")
-    del re, im, fold, fold64, got, plain, back, back_fold, kept, dre, dim_, out, ref
+        gate(worst["steps"] >= STEPS_GATE_DB, f"K7 n={n}: vs steps {worst['steps']:.1f} dB")
+        gate(worst["plain"] >= K7_PLAIN_GATE_DB, f"K7 n={n}: vs plain {worst['plain']:.1f} dB")
+        gate(worst["f64"] >= K7_GATE_DB, f"K7 n={n}: vs f64 {worst['f64']:.1f} dB")
+        gate(worst["rt"] >= K7_RT_GATE_DB, f"K7 n={n}: roundtrip {worst['rt']:.1f} dB")
+    say(f"[14] K7 [{K7_ALL_BATCH}, n, m] at every n, m in {K7_ALL_M}, forward/inverse x no "
+        "twiddle/read grid/generated twiddle, every (tile, cluster) instance: worst SNR vs "
+        f"its step-by-step version in float64 (gate >= {STEPS_GATE_DB}), vs plain (gate >= "
+        f"{K7_PLAIN_GATE_DB}), vs f64 (gate >= {K7_GATE_DB}), roundtrip with the twiddle "
+        f"(gate >= {K7_RT_GATE_DB}): "
+        + "; ".join(f"{k} " + "/".join(f"{v:.1f}" for v in w.values())
+                    for k, w in k7_all.items())
+        + f"; donated equals not donated; the pieced store and load (D = {K7_PIECES}) "
+        "torch.equal to the natural instance re-laid")
+    # The generated twiddle, read back: K7's forward of a one at row 0 of
+    # every column is the twiddle itself (the transform of that column is
+    # all ones, exactly).
+    tw_err = {}
+    for n, m, size, off in ((1024, 1024, 1 << 20, 0), (4096, 1024, 1 << 24, 0),
+                            (1024, 256, 1 << 20, 256), (256, 512, 1 << 17, 0)):
+        tw = fft_cuda.Twiddle(size, off, -1.0)
+        one = torch.zeros((1, n, m), device=dev)
+        one[:, 0, :] = 1.0
+        got = fft_cuda.fft_cols_cuda(one, torch.zeros_like(one), fold=tw)
+        c64, s64 = tw.grids(n, m)
+        sc, ss = fft_cuda.cols_twiddle_steps(tw, n, m, torch.float32)
+        units = max(np.abs(host(got[0][0]) - c64).max(), np.abs(host(got[1][0]) - s64).max())
+        steps_units = max(np.abs(host(got[0][0]) - sc.numpy()).max(),
+                          np.abs(host(got[1][0]) - ss.numpy()).max())
+        tw_err[(n, m, size, off)] = (float(units) * 2.0 ** 24, float(steps_units) * 2.0 ** 24)
+        gate(tw_err[(n, m, size, off)][0] <= K7_TWIDDLE_UNITS,
+             f"K7's generated twiddle at N={size}, offset {off}: "
+             f"{tw_err[(n, m, size, off)][0]:.2f} units of 2^-24 from float64")
+    say("[14] K7's generated twiddle read back (a one at row 0 of every column), worst "
+        f"error in units of 2^-24 against the float64 grid (gate <= {K7_TWIDDLE_UNITS}) and "
+        "against cols_twiddle_steps in float32: "
+        + ", ".join(f"[{n}, {m}] of N={size} from column {off}: {a:.2f} / {b:.2f}"
+                    for (n, m, size, off), (a, b) in tw_err.items()))
+    del re, im, fold, fold64, got, plain, back, dre, dim_, out, ref, one
 
     # 15. the large FFT at full width
     def big_input(batch: int, n: int):
@@ -1501,12 +1583,18 @@ def main() -> int:
                     donate=True))):
             peaks = []
             for fn in (old_fn, new_fn):
+                # the bytes each route asks for: the allocator may hand a
+                # request a cached block up to 1 MB larger inside a segment
+                # that live tensors keep, and count it whole, so its block
+                # bytes follow what earlier phases left (17.0 against 16.8
+                # MB here; alone, both routes 16.78)
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
-                base = torch.cuda.memory_allocated()
+                base = torch.cuda.memory_stats()["requested_bytes.all.current"]
                 got = fn()
                 torch.cuda.synchronize()
-                peaks.append((torch.cuda.max_memory_allocated() - base) / 1e6)
+                peaks.append((torch.cuda.memory_stats()["requested_bytes.all.peak"] - base)
+                             / 1e6)
                 if fn is old_fn:
                     want = got
             gate(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
@@ -1661,8 +1749,10 @@ def main() -> int:
     # 17. times: [BIG_BATCH, 2^20] and one row, CUDA events
     n2b, n1b = big_split(BIG_N)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    big_ms, big_peak, tile_ms = {}, {}, {}
+    big_ms, big_peak = {}, {}
     grid_b = tuple(cuda(a) for a in _interstage_grids(n2b, n1b, -1.0))
+    tw_b = fft_cuda.Twiddle(n2b * n1b, 0, -1.0)          # the large FFT's, generated
+    tw_bi = fft_cuda.Twiddle(n2b * n1b, 0, 1.0)
     for batch in (BIG_BATCH, 1):
         fresh = ComplexArray(torch.randn((batch, BIG_N), generator=gen, device=dev),
                              torch.randn((batch, BIG_N), generator=gen, device=dev))
@@ -1686,12 +1776,15 @@ def main() -> int:
         cplx = torch.complex(fresh.real, fresh.imag)
         grid_c = torch.complex(*grid_b)
         runs = {
-            "K7 with the fold": (lambda: fft_cuda.fft_cols_cuda(*w3, fold=grid_b), None),
-            "K7 with the fold, donated": (
-                lambda: fft_cuda.fft_cols_cuda(*w3, fold=grid_b, donate=True), refill),
-            "K7 plain with the fold": (
-                lambda: fft_cuda.fft_cols_plain(*w3, fold=grid_b), None),
-            "K7 without the fold": (lambda: fft_cuda.fft_cols_cuda(*w3), None),
+            "K7 with the twiddle": (lambda: fft_cuda.fft_cols_cuda(*w3, fold=tw_b), None),
+            "K7 with the twiddle, donated": (
+                lambda: fft_cuda.fft_cols_cuda(*w3, fold=tw_b, donate=True), refill),
+            "K7 inverse with the twiddle": (
+                lambda: fft_cuda.fft_cols_cuda(*w3, inverse=True, fold=tw_bi), None),
+            "K7 with the grid read": (lambda: fft_cuda.fft_cols_cuda(*w3, fold=grid_b), None),
+            "K7 plain with the twiddle": (
+                lambda: fft_cuda.fft_cols_plain(*w3, fold=tw_b), None),
+            "K7 without the twiddle": (lambda: fft_cuda.fft_cols_cuda(*w3), None),
             "torch.fft.fft dim -2 (library)": (
                 lambda: torch.fft.fft(cplx.view(batch, n2b, n1b), dim=-2), None),
             "torch.fft.fft dim -2, then the grid multiply (library)": (
@@ -1717,7 +1810,7 @@ def main() -> int:
             "roundtrip permuted, donated": (roundtrip, None),
             "plain pair (Stockham columns, grid, Stockham rows)": (
                 lambda: fft_cuda.fft_rows_plain(*(p.reshape(-1, n1b) for p in
-                                                  fft_cuda.fft_cols_plain(*w3, fold=grid_b))),
+                                                  fft_cuda.fft_cols_plain(*w3, fold=tw_b))),
                 None),
             "torch.fft.fft dim -1 (library)": (lambda: torch.fft.fft(cplx, dim=-1), None),
             "torch.fft.ifft dim -1 (library)": (lambda: torch.fft.ifft(cplx, dim=-1), None),
@@ -1740,28 +1833,48 @@ def main() -> int:
                 f"({card}): {ms:.4f} ms, {batch * BIG_N / ms / 1e3:.0f} Msamples/s, peak "
                 f"{peak:.1f} MB above the input")
         if batch == BIG_BATCH:
-            say(f"[17] K7 like with like at [{batch}, {n2b}, {n1b}]: without the fold "
-                f"{big_ms[('K7 without the fold', batch)]:.4f} ms beside torch.fft.fft "
+            say(f"[17] K7 like with like at [{batch}, {n2b}, {n1b}]: without the twiddle "
+                f"{big_ms[('K7 without the twiddle', batch)]:.4f} ms beside torch.fft.fft "
                 f"dim -2 {big_ms[('torch.fft.fft dim -2 (library)', batch)]:.4f} ms; with "
-                f"the fold {big_ms[('K7 with the fold', batch)]:.4f} ms beside torch.fft.fft "
-                f"then the grid multiply "
+                f"the twiddle {big_ms[('K7 with the twiddle', batch)]:.4f} ms beside "
+                f"torch.fft.fft then the grid multiply "
                 f"{big_ms[('torch.fft.fft dim -2, then the grid multiply (library)', batch)]:.4f}"
-                f" ms")
-            for tl in K7_TILES:
-                tile_ms[tl] = timed(lambda: fft_cuda._launch_fft_cols(
-                    *w3, False, grid_b, False, tile=tl), runs=7, inner=2)
-            say(f"[17] K7 [{batch}, {n2b}, {n1b}] by columns per block: "
-                + ", ".join(f"{tl}: {ms:.4f} ms" for tl, ms in tile_ms.items())
-                + f" (the wrapper picks {fft_cuda.cols_tile(n2b, n1b)})")
-            n_s, m_s = 256, BIG_N // 256
-            w_s = (work.real.view(batch, n_s, m_s), work.imag.view(batch, n_s, m_s))
-            grid_s = tuple(cuda(a) for a in _interstage_grids(n_s, m_s, -1.0))
-            tile_s = {tl: timed(lambda: fft_cuda._launch_fft_cols(
-                *w_s, False, grid_s, False, tile=tl), runs=7, inner=2) for tl in K7_TILES_256}
-            say(f"[17] K7 [{batch}, {n_s}, {m_s}] by columns per block: "
-                + ", ".join(f"{tl}: {ms:.4f} ms" for tl, ms in tile_s.items())
-                + f" (the wrapper picks {fft_cuda.cols_tile(n_s, m_s)})")
-            del w_s, grid_s
+                f" ms; the grid read in place of the generated twiddle "
+                f"{big_ms[('K7 with the grid read', batch)]:.4f} ms")
+            # every instance at every n on the same points, queued, with the
+            # large FFT's twiddle of that n
+            for bi, n_i in K7_BY_INSTANCE:
+                m_i = work.real.numel() // (bi * n_i)
+                w_i = (work.real.view(bi, n_i, m_i), work.imag.view(bi, n_i, m_i))
+                tw_i = fft_cuda.Twiddle(n_i * m_i, 0, -1.0)
+                by = {cfg: timed(lambda: fft_cuda._launch_fft_cols(*w_i, False, tw_i, False, cfg),
+                                 runs=7, inner=4, queued=True)
+                      for cfg in fft_cuda.cols_instances(n_i)}
+                say(f"[17] K7 [{bi}, {n_i}, {m_i}] with the twiddle by (tile, cluster) "
+                    f"instance, queued: " + ", ".join(f"{c}: {v:.4f} ms" for c, v in by.items())
+                    + f" (the wrapper launches {fft_cuda.cols_config(n_i)})")
+                del w_i
+            # the redesign's shapes: kernel (queued), bound, plain and the
+            # library call (torch.fft.fft over axis -2, the grid multiplied)
+            for bi, n_i, inverse in ((batch, n2b, False), (batch, n2b, True), (16, 4096, False)):
+                m_i = work.real.numel() // (bi * n_i)
+                w_i = (work.real.view(bi, n_i, m_i), work.imag.view(bi, n_i, m_i))
+                tw_i = fft_cuda.Twiddle(n_i * m_i, 0, 1.0 if inverse else -1.0)
+                k_ms = timed(lambda: fft_cuda.fft_cols_cuda(*w_i, inverse, tw_i), runs=7,
+                             inner=4, queued=True)
+                p_ms = timed(lambda: fft_cuda.fft_cols_plain(*w_i, inverse, tw_i), runs=3,
+                             inner=1)
+                c_i = torch.complex(*w_i)
+                g_i = torch.complex(*fft_cuda._twiddle_planes(tw_i, n_i, m_i, torch.float32, dev))
+                lib_ms = timed(lambda: (torch.fft.ifft(c_i * g_i, dim=-2) if inverse
+                                        else torch.fft.fft(c_i, dim=-2) * g_i),
+                               runs=7, inner=4, queued=True)
+                b_ms, b_by = (16 * bi * n_i * m_i + 8 * n_i) / HBM_BYTES_PER_S * 1e3, "bytes"
+                say(f"[17] K7 {'inverse' if inverse else 'forward'} with the twiddle "
+                    f"[{bi}, {n_i}, {m_i}] on {name} ({card}), queued: {k_ms:.4f} ms, bound "
+                    f"{b_ms:.4f} ms by {b_by} ({100 * b_ms / k_ms:.1f}% of the time), plain "
+                    f"{p_ms:.4f} ms, torch.fft with the grid multiply (library) {lib_ms:.4f} ms")
+                del w_i, c_i, g_i
             # axis -2: rounds of K7, movedim, movedim, K7
             ab = {"axis -2 through dispatch (K7)": [], "axis -2 as movedim + K2": []}
             for i in range(AB_ROUNDS):
@@ -1773,8 +1886,8 @@ def main() -> int:
                 f"ms, movedim + K2 median {np.median(mv_r):.4f} ms; K7 faster in "
                 f"{int(sum(a < b for a, b in zip(k7_r, mv_r)))} of {len(k7_r)} samples")
             refill()
-            kern = fft_cuda.fft_cols_cuda(*w3, fold=grid_b)
-            plain = fft_cuda.fft_cols_plain(*w3, fold=grid_b)
+            kern = fft_cuda.fft_cols_cuda(*w3, fold=tw_b)
+            plain = fft_cuda.fft_cols_plain(*w3, fold=tw_b)
             k7_err = float(torch.maximum((kern[0] - plain[0]).abs().max(),
                                          (kern[1] - plain[1]).abs().max()))
             k7_wide_snr = dev_snr_db(plain, kern)
@@ -1784,7 +1897,7 @@ def main() -> int:
                  "dispatch.fft over axis -2 differs from K7")
             s_moved = dev_snr_db(movedim_rows(), nofold)
             gate(s_moved >= K7_GATE_DB, f"K7 vs movedim + K2: {s_moved:.1f} dB")
-            say(f"[17] K7 vs its plain version at [{batch}, {n2b}, {n1b}] with the fold: "
+            say(f"[17] K7 vs its plain version at [{batch}, {n2b}, {n1b}] with the twiddle: "
                 f"{k7_wide_snr:.1f} dB (gate >= {K7_PLAIN_GATE_DB}), max|kernel-plain| "
                 f"{k7_err:.3e}; dispatch.fft(axis=-2) == K7, movedim + K2 agrees to "
                 f"{s_moved:.1f} dB")
@@ -1839,8 +1952,9 @@ def main() -> int:
                              pairs * (2 * fft_flops(n_fir) + 8 * n_fir)),
         "pfb": bound(16 * C5_WIDE + 4 * C5_TPB * c + 8 * c,
                      frames6 * (4 * C5_TPB * c + fft_flops(c))),
-        "fft_cols": bound(16 * kb + 8 * n2b * n1b + 8 * n2b,
-                          BIG_BATCH * n1b * fft_flops(n2b) + 6 * kb),
+        # the twiddle is generated, not read: 6 operations a point for it, 6
+        # for its multiply
+        "fft_cols": bound(16 * kb + 8 * n2b, BIG_BATCH * n1b * fft_flops(n2b) + 12 * kb),
     }
 
     kernels = []
@@ -1874,8 +1988,8 @@ def main() -> int:
              (pfb_ms["K6 (pfb_channelize)"], pfb_ms["plain (branch filter + Stockham)"]),
              path_launches["pfb"], None),
             ("fft_cols", "fft_cols.cu", "pragma_dsp_tpu/ops/fft_pallas.py:717", k7_err,
-             (big_ms[("K7 with the fold", BIG_BATCH)],
-              big_ms[("K7 plain with the fold", BIG_BATCH)]),
+             (big_ms[("K7 with the twiddle", BIG_BATCH)],
+              big_ms[("K7 plain with the twiddle", BIG_BATCH)]),
              big_launches["fft_cols"],
              big_ms[("torch.fft.fft dim -2 (library)", BIG_BATCH)])):
         gate(count > 0, f"{kname} was not launched on its path")
@@ -1927,8 +2041,6 @@ def main() -> int:
     # with the re-layout, timed launched and queued beside it. They run on
     # the path only with more than one rank (one rank's turn is the
     # identity), so phase 21 on one card counts none of them.
-    from pragma_dsp_tpu_torch.parallel.dist_fft import _fold_grids
-
     pb, pn2, ploc = PIECES_SHAPE
     pn1, ph = ploc * PIECES_D, pn2 // PIECES_D
     pgen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1936,8 +2048,8 @@ def main() -> int:
     rows_in = tuple(torch.randn((pb, ph, pn1), generator=pgen, device=dev) for _ in range(2))
     cols_p = tuple(fft_cuda.to_pieces(t, PIECES_D, pb, -2) for t in cols_in)
     rows_p = tuple(fft_cuda.to_pieces(t, PIECES_D, pb, -1) for t in rows_in)
-    fwd_grid = _fold_grids(pn2, pn1, 0, ploc, dev)
-    inv_grid = _fold_grids(pn2, pn1, 0, ploc, dev, 1.0)
+    fwd_grid = fft_cuda.Twiddle(pn2 * pn1, 0, -1.0)    # rank 0's columns, generated
+    inv_grid = fft_cuda.Twiddle(pn2 * pn1, 0, 1.0)
     pieces = (PIECES_D, pb)
     ppts = pb * pn2 * ploc
     inst = {   # label: (kernel, pieced call, natural call, re-layout, plain call, bound)
@@ -1947,7 +2059,7 @@ def main() -> int:
             lambda: fft_cuda.fft_cols_cuda(*cols_in, fold=fwd_grid),
             lambda t: fft_cuda.to_pieces(t, PIECES_D, pb, -2),
             lambda: fft_cuda.fft_cols_pieces_plain(*cols_in, pieces, fold=fwd_grid),
-            bound(16 * ppts + 8 * pn2 * ploc, pb * ploc * fft_flops(pn2) + 6 * ppts)),
+            bound(16 * ppts + 8 * pn2, pb * ploc * fft_flops(pn2) + 12 * ppts)),
         "K7 blocked load, inverse (dist_ifft)": (
             "fft_cols",
             lambda: fft_cuda.fft_cols_pieces_cuda(*cols_p, pieces, inverse=True,
@@ -1956,7 +2068,7 @@ def main() -> int:
             lambda t: t,
             lambda: fft_cuda.fft_cols_pieces_plain(*cols_p, pieces, inverse=True,
                                                    fold=inv_grid, load=True),
-            bound(16 * ppts + 8 * pn2 * ploc, pb * ploc * fft_flops(pn2) + 7 * ppts)),
+            bound(16 * ppts + 8 * pn2, pb * ploc * fft_flops(pn2) + 13 * ppts)),
         "K2 pieced load (dist_fft)": (
             "fft_rows",
             lambda: fft_cuda.fft_rows_pieces_cuda(*rows_p, pieces, load=True),
@@ -2442,7 +2554,9 @@ def main() -> int:
     gate(par_f64["wbfm"] >= C34_GATE_DB, f"sharded WBFM vs float64: {par_f64['wbfm']:.1f} dB")
     del a4, iq4
     # dist_fft / dist_ifft of [64, 1024, 1024] complex f32, chunks 1 (the auto
-    # choice on one rank) and 4: K7 with the fold and K2; K2 inverse and K7
+    # choice on one rank) and 4: K7 with the twiddle and K2; K2 inverse and K7
+    # with the twiddle on its load, once (one rank's turn is the identity: no
+    # twiddle pass of its own, ifft_big_from_permuted's route)
     gate(par.optimal_chunks(*FFT_SHAPE[1:], 1) == 1, "optimal_chunks on one rank is not 1")
     gate(big_split(FFT_SHAPE[1] * FFT_SHAPE[2]) == FFT_SHAPE[1:],
          f"big_split(2^20) is not {FFT_SHAPE[1:]}: fft_big_permuted is no direct op")
@@ -2463,7 +2577,7 @@ def main() -> int:
                   lambda: par.dist_ifft(p, mesh, chunks=chunks),
                   lambda: ComplexArray(*(t.reshape(FFT_SHAPE)
                                          for t in ifft_big_from_permuted(p))),
-                  {"fft_rows": 1, "fft_cols": chunks}, False)
+                  {"fft_rows": 1, "fft_cols": 1}, False)
         par_f64[f"roundtrip chunks {chunks}"] = dev_snr_db((zf.real, zf.imag), (rt.real, rt.imag))
         for key in (f"dist_fft chunks {chunks}", f"roundtrip chunks {chunks}"):
             gate(par_f64[key] >= GATE_DB, f"{key}: {par_f64[key]:.1f} dB")
@@ -2551,7 +2665,7 @@ def main() -> int:
     pfbx = ComplexArray(cuda(rng.standard_normal((2, 64, C5_CHANNELS)).astype(np.float32)),
                         cuda(rng.standard_normal((2, 64, C5_CHANNELS)).astype(np.float32)))
     cr, ci = (cuda(rng.standard_normal((2, n, 256)).astype(np.float32)) for _ in range(2))
-    fold_s = tuple(cuda(g[:, :256]) for g in _interstage_grids(n, 1024, -1.0))
+    fold_s = fft_cuda.Twiddle(n * 1024, 0, -1.0)
     calls = (
         ("spectrum_onesided", lambda: fft_cuda.spectrum_amp_phase_cuda(xs_, n, "hann")),
         ("spectrum_onesided", lambda: fft_cuda.spectrum_peak_cuda(xs_, n, "hann", SR)),

@@ -53,8 +53,10 @@ _SIGNATURES = {
     # blocks, skip, out_frames, out_first, stream
     "pfb_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # in_re, in_im, out_re, out_im, gc, gs (both nullable), pass table, plan,
-    # batch, n, m, tl, inverse, layout, pieces, items a chunk, stream
-    "fft_cols_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # batch, n, m, tile, cluster, inverse, layout, pieces, items a chunk, log2
+    # of the generated twiddle's N (0: none), its column offset and sign, stream
+    "fft_cols_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                     _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

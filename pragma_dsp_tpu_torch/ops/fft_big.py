@@ -4,13 +4,13 @@ Counterpart of ``pragma_dsp_tpu/ops/fft_big.py``. N points are viewed as
 (n2b, n1b) and run as exactly two kernels (``ops/fft_cuda.py``):
 
 1. the column kernel K7: stage-1 sub-FFTs over the n2b axis (axis -2),
-   with the inter-stage twiddle grid W_N^{k2*n1} folded into its store
-   (one streamed constant read, no twiddle pass of its own);
+   with the inter-stage twiddle W_N^{k2*n1} folded into its store
+   (``fft_cuda.Twiddle``: generated in the kernel from the exact integer
+   phase, no grid read and no twiddle pass of its own);
 2. the row kernel K2: stage-2 sub-FFTs over the n1b axis (the last).
 
-Device-memory traffic of the forward pair: in + mid + mid + out + the
-grid, 2.5 passes over the data for one row, and 2 + 1/(2B) for a batch of
-B, since the grid is shared.
+Device-memory traffic of the forward pair: in + mid + mid + out, two
+passes over the data.
 
 **Layout.** :func:`fft_big_permuted` runs K2 in place in stage 1's output
 and returns shape [..., n2b, n1b]; element [k2, k1] holds X[k2 + n2b*k1],
@@ -41,14 +41,13 @@ it, the dtype rule of ``ops.dispatch``.
 
 from __future__ import annotations
 
-import functools
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..core.complex import ComplexArray, as_complex_array, is_power_of_two
-from .fft_cuda import (MAX_COLS_N, MAX_DFT_N, MAX_ROWS_N, MAX_TURNED_N,
+from .fft_cuda import (MAX_COLS_N, MAX_DFT_N, MAX_ROWS_N, MAX_TURNED_N, Twiddle,
                        fft_cols_cuda, fft_cols_plain, fft_rows_cuda,
                        fft_rows_plain, fft_rows_turned_cuda,
                        fft_rows_turned_plain, resolve_precision)
@@ -82,39 +81,23 @@ def big_split(n: int) -> Tuple[int, int]:
     return n2, n1
 
 
-@functools.lru_cache(maxsize=4)
 def _interstage_grids64(n2b: int, n1b: int,
                         sign: float) -> Tuple[np.ndarray, np.ndarray]:
     """Inter-stage twiddle W_N^{sign*k2*n1} as (n2b, n1b) float64 cos/sin
-    grids, row k2 in natural order. The phase k2*n1 is formed and reduced
-    mod N in exact int64 arithmetic before the float64 trig, as the JAX
-    package forms it."""
-    n = n2b * n1b
-    k2 = np.arange(n2b, dtype=np.int64)
-    n1 = np.arange(n1b, dtype=np.int64)
-    phase = (k2[:, None] * n1[None, :]) % n
-    ang = sign * 2.0 * np.pi * phase.astype(np.float64) / n
-    return np.cos(ang), np.sin(ang)
+    grids, row k2 in natural order: :meth:`Twiddle.grids`, whose phase
+    k2*n1 is formed and reduced mod N in exact int64 arithmetic before the
+    float64 trig, as the JAX package forms it."""
+    return Twiddle(n2b * n1b, 0, sign).grids(n2b, n1b)
 
 
 def _interstage_grids(n2b: int, n1b: int,
                       sign: float) -> Tuple[np.ndarray, np.ndarray]:
-    """The grids rounded once to float32, as K7 reads them. Row k2 is
-    bit-equal to row p of the JAX package's grid (which lists its rows in
-    the TPU kernel's sublane-permuted order), k2 = p//128 +
-    (n2b//128)*(p%128)."""
+    """The grids rounded once to float32, as the plain versions multiply
+    by them. Row k2 is bit-equal to row p of the JAX package's grid (which
+    lists its rows in the TPU kernel's sublane-permuted order), k2 = p//128
+    + (n2b//128)*(p%128)."""
     c, s = _interstage_grids64(n2b, n1b, sign)
     return c.astype(np.float32), s.astype(np.float32)
-
-
-@functools.lru_cache(maxsize=4)
-def _device_grids(n2b: int, n1b: int, sign: float, dtype: torch.dtype,
-                  device: torch.device):
-    """The grids on ``device`` in the working dtype: 8*N bytes a pair in
-    float32 (8 MB at N = 2^20), kept for the last four (size, sign, dtype,
-    device) in use."""
-    return tuple(torch.from_numpy(g).to(device=device, dtype=dtype)
-                 for g in _interstage_grids64(n2b, n1b, sign))
 
 
 def _cols(re, im, inverse: bool, fold, donate: bool):
@@ -163,8 +146,7 @@ def fft_big_permuted(x, precision: Optional[str] = None,
     n2b, n1b = big_split(xc.real.shape[-1])
     view = xc.real.shape[:-1] + (n2b, n1b)
     re, im, own = _working_planes(xc, view, donate)
-    grids = _device_grids(n2b, n1b, -1.0, re.dtype, re.device)
-    re, im = _cols(re, im, False, grids, own)
+    re, im = _cols(re, im, False, Twiddle(n2b * n1b, 0, -1.0), own)
     re, im = _rows(re.reshape(-1, n1b), im.reshape(-1, n1b), False, True)
     return ComplexArray(re.reshape(view).to(dtype), im.reshape(view).to(dtype))
 
@@ -181,8 +163,8 @@ def ifft_big_from_permuted(p, precision: Optional[str] = None,
     n2b, n1b = shape[-2:]
     re, im, own = _working_planes(pc, shape, donate)
     re, im = _rows(re.reshape(-1, n1b), im.reshape(-1, n1b), True, own)
-    grids = _device_grids(n2b, n1b, 1.0, re.dtype, re.device)
-    re, im = _cols(re.reshape(shape), im.reshape(shape), True, grids, True)
+    re, im = _cols(re.reshape(shape), im.reshape(shape), True, Twiddle(n2b * n1b, 0, 1.0),
+                   True)
     flat = shape[:-2] + (n2b * n1b,)
     return ComplexArray(re.reshape(flat).to(dtype), im.reshape(flat).to(dtype))
 
@@ -216,8 +198,7 @@ def fft_big(x, precision: Optional[str] = None,
     dtype = xc.real.dtype
     flat = xc.real.shape[:-1] + (n,)
     re, im, own = _working_planes(xc, (-1, n2b, n1b), donate)
-    grids = _device_grids(n2b, n1b, -1.0, re.dtype, re.device)
-    re, im = _cols(re, im, False, grids, own)
+    re, im = _cols(re, im, False, Twiddle(n2b * n1b, 0, -1.0), own)
     re, im = _rows_turned(re, im, False, load=False)
     return ComplexArray(re.reshape(flat).to(dtype), im.reshape(flat).to(dtype))
 
@@ -240,6 +221,5 @@ def ifft_big(x, precision: Optional[str] = None,
     flat = xc.real.shape[:-1] + (n,)
     re, im, _ = _working_planes(xc, (-1, n1b, n2b), False)
     re, im = _rows_turned(re, im, True, load=True)
-    grids = _device_grids(n2b, n1b, 1.0, re.dtype, re.device)
-    re, im = _cols(re, im, True, grids, True)
+    re, im = _cols(re, im, True, Twiddle(n2b * n1b, 0, 1.0), True)
     return ComplexArray(re.reshape(flat).to(dtype), im.reshape(flat).to(dtype))

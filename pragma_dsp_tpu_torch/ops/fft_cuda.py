@@ -30,9 +30,11 @@ Counterpart of ``pragma_dsp_tpu/ops/fft_pallas.py``:
   spectrogram never materialises its overlapping frames.
 * K7 ``fft_cols`` (``csrc/fft_cols.cu``) replaces ``_fftcols_kernel``: a
   batched complex FFT over axis -2 of [B, n, m], natural row order in and
-  out, with an optional (n, m) twiddle grid folded into the output
-  (forward) or the input (inverse): the register core run down the columns
-  of a tile, the lanes of a warp across its columns. It is stage 1 of the
+  out, with an optional twiddle folded into the output (forward) or the
+  input (inverse), generated in the kernel (:class:`Twiddle`) or read
+  from an (n, m) grid: a tile of whole columns held by a cluster of
+  blocks, the register core's passes after the first on each block's
+  share, the lanes of a warp across the columns. It is stage 1 of the
   large FFT (``ops/fft_big.py``) and the axis -2 route of ``ops.dispatch``.
   Its pieced instances (:func:`fft_cols_pieces_cuda`) store or load the
   rows in the pieces of the distributed FFT's all-to-all.
@@ -64,12 +66,12 @@ from __future__ import annotations
 
 import contextlib
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..core.complex import is_power_of_two, next_power_of_two
+from ..core.complex import is_power_of_two
 from ..core.device import to_tensor
 from ..core.fft import fft_axis0
 from ..xform.fourier import bin_frequencies, bin_step, create_window, window_values
@@ -112,6 +114,9 @@ __all__ = [
     "fft_cols_cuda",
     "fft_cols_plain",
     "fft_cols_steps",
+    "cols_config",
+    "cols_twiddle_steps",
+    "Twiddle",
     "to_pieces",
     "from_pieces",
     "fft_cols_pieces_cuda",
@@ -126,15 +131,16 @@ MAX_ROWS_N = 16384
 # kTurnMaxLog2N in csrc/fft_rows.cu): 8 rows a block to n = 2048, 4 at 4096.
 MIN_TURNED_N, MAX_TURNED_N = 256, 4096
 # The column kernel's largest transform, the JAX package's bound
-# (fft_pallas.py:791), kept as the contract: ops.fft_big splits by it. Four
-# columns of 4096 points are the 1024 threads of one block.
+# (fft_pallas.py:791), kept as the contract: ops.fft_big splits by it.
 MAX_COLS_N = 4096
-# The tile widths K7 is instantiated for (narrower only where the threads
-# of a block hold no wider one: 4 columns at n = 4096), and that limit.
-COLS_TILES = (8, 16, 32)
-COLS_MAX_THREADS = 1024
-# K7's exchange tile has one spare row after every 2**COLS_PAD_SHIFT rows.
-COLS_PAD_SHIFT = 4
+# K7's tiles (columns a cluster holds: 64- or 128-byte row segments) and its
+# blocks' threads (512: two blocks an SM; 1024: one).
+COLS_TILES = (16, 32)
+COLS_MIN_THREADS, COLS_MAX_THREADS = 512, 1024
+# The (tile, cluster) K7 launches at each n (kLog2Tile, kLog2Cluster of
+# csrc/fft_cols.cu): the fastest instance at [B, n, 2^20/n] with the twiddle
+# on an H100 (PERF.md, PR 17).
+COLS_CONFIG = {256: (32, 1), 512: (16, 1), 1024: (16, 1), 2048: (32, 8), 4096: (16, 4)}
 # K3 takes any n up to this through a direct DFT, as the JAX package's
 # dense-DFT route does (fft_pallas.py:1638-1641); above it, n must be a
 # power of two, and one-sided spectra go to K1.
@@ -291,9 +297,7 @@ def exchange_at(a, log2w: int = 0, padshift: int = 5):
     transform lies in its exchange, in words from its point 0, when points
     are ``2**log2w`` words apart with one spare point after every
     ``2**padshift``. The row kernels are (0, 5), :func:`exchange_pad`; K7's
-    [row][column] tile of ``2**log2w`` columns is (log2w, COLS_PAD_SHIFT):
-    the 32 / 2**log2w rows a warp touches at once, consecutive on a reload
-    and 16 apart on the first pass's store, lie in different banks."""
+    [row][column] tile is (log2 of its columns, :func:`cols_pad_shift`)."""
     return (a + (a >> padshift)) << log2w
 
 
@@ -339,31 +343,17 @@ def _butterflies_steps(xr: list, xi: list, radix: int) -> None:
             xr[u + t * m], xi[u + t * m] = nat[t]
 
 
-def _fft_regs_steps(xr: list, xi: list, n: int, tw: torch.Tensor,
-                    log2w: Optional[int] = None) -> None:
+def _fft_regs_steps(xr: list, xi: list, n: int, tw: torch.Tensor) -> None:
     """The register core on R = len(xr) registers of [B, T] lanes
     (T = n/R threads a row; register q of thread tid holds point
     tid + T*q, before and after): the passes of :func:`radix_plan`, each a
     twiddle multiply, the in-register butterflies and, but for the last,
-    one exchange through a padded row of shared memory.
-
-    ``log2w`` set: the core down the columns of a tile, as K7 runs it.
-    Registers are [..., T, W] (W = 2**log2w columns, the lanes of a warp
-    across them first), the exchange is the [row][column] tile of
-    :func:`exchange_at` (log2w, COLS_PAD_SHIFT), and a row's lanes share
-    its twiddle."""
+    one exchange through a padded row of shared memory."""
     regs = len(xr)
     lanes = n // regs
     dev = xr[0].device
     tid = torch.arange(lanes, device=dev)
-    if log2w is None:
-        lead, words = xr[0].shape[:-1], exchange_pad(n)
-        at, wide = exchange_pad, (lambda v: v)
-    else:
-        col = torch.arange(1 << log2w, device=dev)
-        lead, words = xr[0].shape[:-2], exchange_at(n, log2w, COLS_PAD_SHIFT)
-        at = lambda a: exchange_at(a, log2w, COLS_PAD_SHIFT)[:, None] + col  # noqa: E731
-        wide = lambda v: v[:, None]  # noqa: E731
+    lead, words = xr[0].shape[:-1], exchange_pad(n)
     plan = radix_plan(n)
     ns, off = 1, 0
     for p, r in enumerate(plan):
@@ -372,7 +362,7 @@ def _fft_regs_steps(xr: list, xi: list, n: int, tw: torch.Tensor,
             for u in range(m):
                 k = (tid + u * lanes) & (ns - 1)
                 for t in range(1, r):
-                    c, s = (wide(w) for w in tw[off + (t - 1) * ns + k].unbind(-1))
+                    c, s = tw[off + (t - 1) * ns + k].unbind(-1)
                     q = u + t * m
                     xr[q], xi[q] = xr[q] * c - xi[q] * s, xr[q] * s + xi[q] * c
             off += (r - 1) * ns
@@ -384,10 +374,10 @@ def _fft_regs_steps(xr: list, xi: list, n: int, tw: torch.Tensor,
                 j = tid + u * lanes
                 base = (j // ns) * ns * r + (j & (ns - 1))
                 for t in range(r):
-                    a = at(base + t * ns)
+                    a = exchange_pad(base + t * ns)
                     sre[..., a], sim[..., a] = xr[u + t * m], xi[u + t * m]
             for q in range(regs):
-                a = at(tid + lanes * q)
+                a = exchange_pad(tid + lanes * q)
                 xr[q], xi[q] = sre[..., a], sim[..., a]
         ns *= r
 
@@ -1248,6 +1238,260 @@ def fft_rows_pieces_cuda(re: torch.Tensor, im: torch.Tensor, pieces, inverse: bo
     return ore, oim
 
 
+
+
+# ── K7: column FFT with a folded twiddle ─────────────────────────────
+
+
+class Twiddle(NamedTuple):
+    """The inter-stage twiddle of a large FFT of ``size`` = N points, as
+    K7 folds it into an (n, m) block: W_N^(sign*k2*(offset + c)) at row k2
+    and column c (``offset``: a rank's first column in ``dist_fft``).
+
+    K7 generates it on the card from the phase k2*(offset + c) reduced mod
+    N exactly in integers (:func:`cols_twiddle_steps` repeats it); the
+    plain versions multiply by :meth:`grids`, the float64 grid of that same
+    phase rounded once, as ``ops.fft_big``'s grids are formed."""
+    size: int
+    offset: int = 0
+    sign: float = -1.0
+
+    def grids(self, n: int, m: int) -> Tuple[np.ndarray, np.ndarray]:
+        """(cos, sin) of the (n, m) block, float64."""
+        return _twiddle_grids64(int(self.size), int(self.offset), float(self.sign), n, m)
+
+
+@functools.lru_cache(maxsize=8)
+def _twiddle_grids64(size: int, offset: int, sign: float, n: int, m: int):
+    k2 = np.arange(n, dtype=np.int64)
+    c = np.arange(offset, offset + m, dtype=np.int64)
+    phase = (k2[:, None] * c[None, :]) % size
+    ang = sign * 2.0 * np.pi * phase.astype(np.float64) / size
+    return np.cos(ang), np.sin(ang)
+
+
+@functools.lru_cache(maxsize=8)
+def _twiddle_planes(fold: Twiddle, n: int, m: int, dtype: torch.dtype,
+                    device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:meth:`Twiddle.grids` on ``device`` in ``dtype`` (8 bytes a point in
+    float32), kept for the last eight in use."""
+    return tuple(torch.from_numpy(g).to(device=device, dtype=dtype) for g in fold.grids(n, m))
+
+
+def _check_fold(fold, n: int, m: int):
+    """A fold argument, checked: None, a :class:`Twiddle` (N a power of two
+    from 4 to 2^31, sign +1 or -1, offset >= 0), or two (n, m) grids."""
+    if fold is None:
+        return None
+    if isinstance(fold, Twiddle):
+        if not (is_power_of_two(fold.size) and 4 <= fold.size <= 1 << 31
+                and fold.sign in (1, -1) and fold.offset >= 0):
+            raise ValueError(f"a twiddle takes a power-of-two size in 4..2^31, sign +1 "
+                             f"or -1 and an offset >= 0, got {fold}")
+        return fold
+    if len(fold) != 2 or any(tuple(g.shape) != (n, m) for g in fold):
+        raise ValueError(f"fold grids must be two ({n}, {m}) arrays, got "
+                         f"{[tuple(g.shape) for g in fold]}")
+    return fold
+
+
+def _fold_mul(re: torch.Tensor, im: torch.Tensor, fold):
+    if isinstance(fold, Twiddle):
+        gc, gs = _twiddle_planes(fold, re.shape[-2], re.shape[-1], re.dtype, re.device)
+    else:
+        gc, gs = (torch.as_tensor(g).to(device=re.device, dtype=re.dtype) for g in fold)
+    return re * gc - im * gs, re * gs + im * gc
+
+
+def fft_cols_plain(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
+                   fold=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K7's plain version: the Stockham FFT over axis -2 of [..., n, m], and
+    the twiddle multiply (after a forward transform, before an inverse
+    one): a :class:`Twiddle`'s float64 grid rounded to the planes' dtype,
+    or the grids given."""
+    if fold is not None and inverse:
+        re, im = _fold_mul(re, im, fold)
+    n = re.shape[-2]
+    moved = torch.movedim(re, -2, 0).shape
+    ore, oim = fft_axis0(torch.movedim(re, -2, 0).reshape(n, -1),
+                         torch.movedim(im, -2, 0).reshape(n, -1), inverse)
+    ore = torch.movedim(ore.reshape(moved), 0, -2)
+    oim = torch.movedim(oim.reshape(moved), 0, -2)
+    if fold is not None and not inverse:
+        ore, oim = _fold_mul(ore, oim, fold)
+    return ore.contiguous(), oim.contiguous()
+
+
+def cols_config(n: int) -> Tuple[int, int]:
+    """(columns a tile, blocks a cluster) of K7 at n: ``COLS_CONFIG``, the
+    kLog2Tile and kLog2Cluster tables of csrc/fft_cols.cu. A cluster holds
+    a tile of whole columns; its blocks have n*tile/(16*cluster) threads."""
+    if n not in COLS_CONFIG:
+        raise ValueError(f"the column FFT covers power-of-two n in "
+                         f"{min(COLS_CONFIG)}..{max(COLS_CONFIG)}, got {n}")
+    return COLS_CONFIG[n]
+
+
+def cols_instances(n: int) -> Tuple[Tuple[int, int], ...]:
+    """Every (tile, cluster) K7 is built for at n: a tile of 16 or 32
+    columns, up to 8 blocks a cluster, 512 or 1024 threads a block. The
+    natural layout has each; the pieced ones :func:`cols_config` only."""
+    return tuple((tile, cluster) for tile in COLS_TILES for cluster in (1, 2, 4, 8)
+                 if COLS_MIN_THREADS <= n * tile // (MAX_RADIX * cluster) <= COLS_MAX_THREADS)
+
+
+def _check_cols_config(n: int, config) -> Tuple[int, int]:
+    config = cols_config(n) if config is None else tuple(int(v) for v in config)
+    if config not in cols_instances(n):
+        raise ValueError(
+            f"the column FFT kernel takes a tile of {COLS_TILES} columns in clusters of "
+            f"1..8 blocks of {COLS_MIN_THREADS} or {COLS_MAX_THREADS} threads "
+            f"(n * tile / (16 * cluster)), got (tile, cluster) = {config} at n = {n}")
+    return config
+
+
+def cols_pad_shift(tile: int, cluster: int) -> int:
+    """log2 of the rows between two spare rows of K7's exchange (kPadShift):
+    G = 16/cluster where a warp spans two rows (16 columns), none (30, a
+    shift no row index reaches) at 32 columns."""
+    return 30 if tile >= 32 else 4 - (cluster.bit_length() - 1)
+
+
+def cols_twiddle_steps(fold: Twiddle, n: int, m: int, dtype=torch.float64,
+                       device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The twiddle K7 generates for an (n, m) block, step by step: at row
+    k2 = r0 + (n/16)*q, A * B_q with A = W^(r0*c) and B_q = W^((n/16)*q*c)
+    (c the column plus the offset), each from its phase reduced mod N in
+    integers, rounded to ``dtype`` from float64 (the kernel's cospi/sinpi
+    are within an ulp of it), and the product rounded in ``dtype`` without
+    fused multiply-adds, as the kernel forms it."""
+    lanes = n // MAX_RADIX
+    c = torch.arange(fold.offset, fold.offset + m, dtype=torch.int64)
+    k2 = torch.arange(n, dtype=torch.int64)
+
+    def unit(phase):
+        ang = fold.sign * 2.0 * np.pi * (phase % fold.size).double() / fold.size
+        return torch.cos(ang).to(dtype), torch.sin(ang).to(dtype)
+
+    ar, ai = unit((k2 % lanes)[:, None] * c[None, :])
+    br, bi = unit((k2 // lanes * lanes)[:, None] * c[None, :])
+    out = ar * br - ai * bi, ar * bi + ai * br
+    return tuple(t.to(device) for t in out) if device is not None else out
+
+
+def fft_cols_steps(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
+                   fold=None, config=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K7's arithmetic step by step in PyTorch, for the tests: what
+    ``csrc/fft_cols.cu`` does to [..., n, m] planes, block, thread,
+    register and shared-memory address included.
+
+    A cluster of ``cluster`` blocks owns ``tile`` adjacent columns
+    (default :func:`cols_config`); a last tile that m does not fill loads
+    zeros for its missing columns and stores nothing there. Row-thread
+    r = rank*(T/cluster) + i (T = n/16) holds rows r + T*q in register q
+    and runs pass 1 (radix 16); its output t goes to block t/G (G =
+    16/cluster), local row r*G + t%G of that block's [row][column]
+    exchange. Every later pass is the register core's on the block's own
+    n/cluster points (local index i, stride Ns/cluster, spare rows by
+    :func:`cols_pad_shift`), with the twiddles of the true butterfly index
+    j = 16*(i/G) + rank*G + i%G; register q then holds row j + T*q. A
+    :class:`Twiddle` multiplies the registers by :func:`cols_twiddle_steps`
+    after the load (inverse) or before the store (forward), grids by their
+    values. The inverse is the forward transform of the swapped planes, on
+    which the twiddle enters conjugated, swapped back and scaled by 1/n."""
+    n, m = re.shape[-2:]
+    tl, cs = _check_cols_config(n, config)
+    fold = _check_fold(fold, n, m)
+    shape, dev, dtype = re.shape, re.device, re.dtype
+    tiles = -(-m // tl)
+    lanes = n // MAX_RADIX                      # T
+    loc = lanes // cs                           # T/CS, row-threads a block
+    g_out = MAX_RADIX // cs                     # G
+    pad = cols_pad_shift(tl, cs)
+    col = torch.arange(tl, device=dev)
+
+    def tiled(plane):
+        """[..., n, m] -> [B, tiles, n, tl], zeros in the masked columns."""
+        plane = torch.nn.functional.pad(plane.reshape(-1, n, m), (0, tiles * tl - m))
+        return plane.reshape(-1, n, tiles, tl).transpose(1, 2)
+
+    def words(rows):
+        """Word of (local row, column) in a block's exchange plane."""
+        return exchange_at(rows, 0, pad)[..., None] * tl + col
+
+    if inverse:
+        re, im = im, re
+    pr, pi = tiled(re), tiled(im)
+    gsign = -1.0 if inverse else 1.0
+    if fold is not None:
+        if isinstance(fold, Twiddle):
+            gc, gs = cols_twiddle_steps(fold, n, m, dtype, dev)
+        else:
+            gc, gs = (torch.as_tensor(g).to(device=dev, dtype=dtype) for g in fold)
+        gc, gs = (tiled(g)[0] for g in (gc, gs))           # [tiles, n, tl]
+
+    def fold_in(xr, xi, rows):
+        for q in range(MAX_RADIX):
+            c, s = gc[:, rows + lanes * q, :], gsign * gs[:, rows + lanes * q, :]
+            xr[q], xi[q] = xr[q] * c - xi[q] * s, xr[q] * s + xi[q] * c
+
+    # pass 1: row-thread r (all ranks in order) holds rows r + T*q
+    r = torch.arange(lanes, device=dev)
+    xr = [pr[:, :, r + lanes * q, :] for q in range(MAX_RADIX)]
+    xi = [pi[:, :, r + lanes * q, :] for q in range(MAX_RADIX)]
+    if fold is not None and inverse:
+        fold_in(xr, xi, r)
+    _butterflies_steps(xr, xi, MAX_RADIX)
+    plane = int(exchange_at(n // cs, 0, pad)) * tl
+    sre = torch.zeros(pr.shape[:2] + (cs, plane), dtype=dtype, device=dev)
+    sim = torch.zeros_like(sre)
+    for t in range(MAX_RADIX):
+        at = words(r * g_out + t % g_out)                  # [T, tl] in block t // G
+        sre[:, :, t // g_out, at], sim[:, :, t // g_out, at] = xr[t], xi[t]
+    # the later passes, block by block: [B, tiles, cs, T/cs, tl] registers
+    rank = torch.arange(cs, device=dev)[:, None]
+    i = torch.arange(loc, device=dev)[None, :]
+    j = (i // g_out) * MAX_RADIX + rank * g_out + i % g_out          # [cs, loc]
+    rank = rank[..., None]                                            # by (i, column)
+    xr = [sre[:, :, rank, words(i + loc * q)] for q in range(MAX_RADIX)]
+    xi = [sim[:, :, rank, words(i + loc * q)] for q in range(MAX_RADIX)]
+    tw = torch.from_numpy(pass_twiddles(
+        n, np.float32 if dtype == torch.float32 else np.float64)).to(dev)
+    plan = radix_plan(n)
+    ns, off = MAX_RADIX, 0
+    for p, radix in enumerate(plan[1:], 1):
+        mm = MAX_RADIX // radix
+        for u in range(mm):
+            k = (j + u * lanes) & (ns - 1)
+            for t in range(1, radix):
+                c, s = (w[..., None] for w in tw[off + (t - 1) * ns + k].unbind(-1))
+                q = u + t * mm
+                xr[q], xi[q] = xr[q] * c - xi[q] * s, xr[q] * s + xi[q] * c
+        off += (radix - 1) * ns
+        _butterflies_steps(xr, xi, radix)
+        if p + 1 < len(plan):
+            nsl = ns // cs
+            for u in range(mm):
+                jl = i + u * loc
+                base = (jl // nsl) * nsl * radix + jl % nsl
+                for t in range(radix):
+                    at = words(base + t * nsl)
+                    sre[:, :, rank, at], sim[:, :, rank, at] = xr[u + t * mm], xi[u + t * mm]
+            xr = [sre[:, :, rank, words(i + loc * q)] for q in range(MAX_RADIX)]
+            xi = [sim[:, :, rank, words(i + loc * q)] for q in range(MAX_RADIX)]
+        ns *= radix
+    if fold is not None and not inverse:
+        fold_in(xr, xi, j)
+    scale = 1.0 / n if inverse else 1.0
+    ore, oim = torch.empty_like(pr), torch.empty_like(pi)
+    for q in range(MAX_RADIX):
+        ore[:, :, j + lanes * q, :] = xr[q] * scale
+        oim[:, :, j + lanes * q, :] = xi[q] * scale
+    ore, oim = (p.transpose(1, 2).reshape(-1, n, tiles * tl)[..., :m].reshape(shape)
+                for p in (ore, oim))
+    return (oim, ore) if inverse else (ore, oim)
+
+
 def fft_cols_pieces_plain(re: torch.Tensor, im: torch.Tensor, pieces, inverse: bool = False,
                           fold=None, load: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """K7's pieced instances' plain version: :func:`fft_cols_plain` of
@@ -1269,13 +1513,13 @@ def fft_cols_pieces_cuda(re: torch.Tensor, im: torch.Tensor, pieces, inverse: bo
     The blocked store (``load=False``): natural [B, n, m] in; out
     [B/bc, d, bc, n/d, m] (:func:`to_pieces` over axis -2), one launch. The
     blocked load (``load=True``): [C, d, bc, n/d, m] in, contiguous; out
-    natural [C*bc, n, m]. ``fold`` = (cos, sin), two (n, m) grids in natural
-    row order, multiplied into the forward's output or the inverse's input
-    as :func:`fft_cols_cuda` does. The same bits as :func:`fft_cols_cuda`
-    followed, or preceded, by the re-layout. ``out``: two contiguous planes
-    of the result's shape to write into. On CUDA: power-of-two n from 256
-    to 4096, any m, the widest tile of n, never in place. A CPU tensor runs
-    :func:`fft_cols_pieces_plain`.
+    natural [C*bc, n, m]. ``fold``: a :class:`Twiddle` or two (n, m) grids
+    in natural row order, multiplied into the forward's output or the
+    inverse's input as :func:`fft_cols_cuda` does. The same bits as
+    :func:`fft_cols_cuda` followed, or preceded, by the re-layout. ``out``:
+    two contiguous planes of the result's shape to write into. On CUDA:
+    power-of-two n from 256 to 4096, any m, n's own tile and cluster, never
+    in place. A CPU tensor runs :func:`fft_cols_pieces_plain`.
     """
     what = "fft_cols_pieces"
     if load:
@@ -1289,9 +1533,7 @@ def fft_cols_pieces_cuda(re: torch.Tensor, im: torch.Tensor, pieces, inverse: bo
         raise ValueError(f"the pieced column FFT takes a power-of-two n in "
                          f"{2 * MAX_DFT_N}..{MAX_COLS_N}, got {n}")
     d, bc = _check_pieces(re, im, pieces, n, load, what)
-    if fold is not None and any(tuple(g.shape) != (n, m) for g in fold):
-        raise ValueError(f"fold grids must be two ({n}, {m}) arrays, got "
-                         f"{[tuple(g.shape) for g in fold]}")
+    fold = _check_fold(fold, n, m)
     shape = ((re.shape[0] * bc, n, m) if load
              else (re.shape[0] // bc, d, bc, n // d, m))
     if not (re.is_cuda or im.is_cuda):
@@ -1302,122 +1544,9 @@ def fft_cols_pieces_cuda(re: torch.Tensor, im: torch.Tensor, pieces, inverse: bo
     ore, oim = _pieces_out(out, shape, re, what)
     batch = re.numel() // (n * m)
     if batch:
-        _launch_cols_kernel(re, im, ore, oim, batch, n, m, widest_cols_tile(n), fold,
+        _launch_cols_kernel(re, im, ore, oim, batch, n, m, cols_config(n), fold,
                             inverse, 2 if load else 1, d, bc)
     return ore, oim
-
-
-# ── K7: column FFT with a folded twiddle grid ────────────────────────
-
-
-def _fold_mul(re: torch.Tensor, im: torch.Tensor, fold):
-    gc, gs = (torch.as_tensor(g).to(device=re.device, dtype=re.dtype) for g in fold)
-    return re * gc - im * gs, re * gs + im * gc
-
-
-def fft_cols_plain(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
-                   fold=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K7's plain version: the Stockham FFT over axis -2 of [..., n, m], and
-    the grid multiply (after a forward transform, before an inverse one)."""
-    if fold is not None and inverse:
-        re, im = _fold_mul(re, im, fold)
-    n = re.shape[-2]
-    moved = torch.movedim(re, -2, 0).shape
-    ore, oim = fft_axis0(torch.movedim(re, -2, 0).reshape(n, -1),
-                         torch.movedim(im, -2, 0).reshape(n, -1), inverse)
-    ore = torch.movedim(ore.reshape(moved), 0, -2)
-    oim = torch.movedim(oim.reshape(moved), 0, -2)
-    if fold is not None and not inverse:
-        ore, oim = _fold_mul(ore, oim, fold)
-    return ore.contiguous(), oim.contiguous()
-
-
-def cols_tile(n: int, m: int) -> int:
-    """Columns per block of K7: as many as the n/16 * tile threads of a
-    block allow, up to a warp: 32 to n = 512, 16 at 1024, 8 at 2048, 4 at
-    4096; down to 8 where m rounded up to a power of two is narrower (the
-    one tile's missing columns are masked). The exchange tile takes
-    8.5 * n * tile bytes of shared memory. Width is what the time follows
-    (a warp's load touches 32/tile lines): on an H100 with the fold,
-    [64, 1024, 1024] read 0.54 ms at 16 columns and 0.68 at 8,
-    [64, 256, 4096] 0.46 at 32, 0.49 at 16 and 0.67 at 8, and
-    [16, 4096, 1024], the same bytes with 4 columns, 1.62 ms."""
-    return min(widest_cols_tile(n), max(COLS_TILES[0], next_power_of_two(m)))
-
-
-def widest_cols_tile(n: int) -> int:
-    """K7's widest tile at n: 32 columns to n = 512, then as many as the
-    1024 threads of a block hold. The pieced instances take only this one."""
-    return min(COLS_TILES[-1], COLS_MAX_THREADS * MAX_RADIX // n)
-
-
-def _check_cols_tile(n: int, tile: int) -> int:
-    threads = n // MAX_RADIX * tile
-    if not (is_power_of_two(tile) and tile <= COLS_TILES[-1]
-            and threads <= COLS_MAX_THREADS
-            and (tile >= COLS_TILES[0] or threads == COLS_MAX_THREADS)):
-        raise ValueError(
-            f"the column FFT kernel takes a tile of {COLS_TILES} columns with "
-            f"n/16 * tile <= {COLS_MAX_THREADS} threads, or the widest that "
-            f"fits, got {tile} at n = {n}")
-    return tile
-
-
-def fft_cols_steps(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
-                   fold=None, tile: Optional[int] = None
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K7's arithmetic step by step in PyTorch, for the tests: what
-    ``csrc/fft_cols.cu`` does to [..., n, m] planes. A block owns ``tile``
-    adjacent columns (default :func:`cols_tile`); thread (column, r) holds
-    rows r + (n/16)*q of its column in register q; a last tile that m does
-    not fill loads zeros for its missing columns and stores nothing there;
-    the passes are the register core's down the column with the padded
-    [row][column] exchange. The grid multiplies the registers after the
-    load (inverse) or before the store (forward). The inverse is the
-    forward transform of the swapped planes, on which the grid enters
-    conjugated, swapped back and scaled by 1/n."""
-    n, m = re.shape[-2:]
-    tl = _check_cols_tile(n, cols_tile(n, m) if tile is None else tile)
-    shape = re.shape
-    tiles = -(-m // tl)
-
-    def tiled(plane):
-        """[..., n, m] -> [B, tiles, n, tl], zeros in the masked columns."""
-        plane = torch.nn.functional.pad(plane.reshape(-1, n, m), (0, tiles * tl - m))
-        return plane.reshape(-1, n, tiles, tl).transpose(1, 2)
-
-    if inverse:
-        re, im = im, re
-    pr, pi = tiled(re), tiled(im)
-    lanes = n // MAX_RADIX
-    r = torch.arange(lanes, device=re.device)
-    xr = [pr[:, :, r + lanes * q, :] for q in range(MAX_RADIX)]
-    xi = [pi[:, :, r + lanes * q, :] for q in range(MAX_RADIX)]
-    if fold is not None:
-        gc, gs = (tiled(torch.as_tensor(g).to(device=re.device, dtype=re.dtype))[0]
-                  for g in fold)
-        gsign = -1.0 if inverse else 1.0
-
-        def grid_multiply():
-            for q in range(MAX_RADIX):
-                c, s = gc[:, r + lanes * q, :], gsign * gs[:, r + lanes * q, :]
-                xr[q], xi[q] = xr[q] * c - xi[q] * s, xr[q] * s + xi[q] * c
-
-    if fold is not None and inverse:
-        grid_multiply()
-    tw = torch.from_numpy(pass_twiddles(
-        n, np.float32 if re.dtype == torch.float32 else np.float64)).to(re.device)
-    _fft_regs_steps(xr, xi, n, tw, log2w=tl.bit_length() - 1)
-    if fold is not None and not inverse:
-        grid_multiply()
-    scale = 1.0 / n if inverse else 1.0
-    ore, oim = torch.empty_like(pr), torch.empty_like(pi)
-    for q in range(MAX_RADIX):
-        ore[:, :, r + lanes * q, :] = xr[q] * scale
-        oim[:, :, r + lanes * q, :] = xi[q] * scale
-    ore, oim = (p.transpose(1, 2).reshape(-1, n, tiles * tl)[..., :m].reshape(shape)
-                for p in (ore, oim))
-    return (oim, ore) if inverse else (ore, oim)
 
 
 def _check_cols_planes(re: torch.Tensor, im: torch.Tensor) -> None:
@@ -1428,14 +1557,17 @@ def _check_cols_planes(re: torch.Tensor, im: torch.Tensor) -> None:
         raise ValueError("the column FFT kernel needs both planes on one CUDA device")
 
 
-def _launch_cols_kernel(re, im, ore, oim, batch: int, n: int, m: int, tile: int, fold,
+def _launch_cols_kernel(re, im, ore, oim, batch: int, n: int, m: int, config, fold,
                         inverse: bool, layout: int = 0, pieces: int = 1,
                         items: int = 1) -> None:
-    """One launch of K7 on contiguous float32 planes (``layout``: 0
-    natural, 1 stored in pieces, 2 loaded in pieces; ``pieces`` their
-    number, ``items`` the items a chunk)."""
+    """One launch of K7 on contiguous float32 planes (``config``: (tile,
+    cluster); ``layout``: 0 natural, 1 stored in pieces, 2 loaded in
+    pieces; ``pieces`` their number, ``items`` the items a chunk)."""
     gc = gs = None
-    if fold is not None:
+    log2big = offset = sign = 0
+    if isinstance(fold, Twiddle):
+        log2big, offset, sign = fold.size.bit_length() - 1, fold.offset, int(fold.sign)
+    elif fold is not None:
         gc, gs = (torch.as_tensor(g).to(device=re.device, dtype=torch.float32)
                   .contiguous() for g in fold)
     lib = _build.library()
@@ -1446,24 +1578,26 @@ def _launch_cols_kernel(re, im, ore, oim, batch: int, n: int, m: int, tile: int,
             re.data_ptr(), im.data_ptr(), ore.data_ptr(), oim.data_ptr(),
             None if gc is None else gc.data_ptr(),
             None if gs is None else gs.data_ptr(), tw.data_ptr(),
-            _plan_code_of(n), batch, n, m, tile, int(inverse), layout, pieces, items,
-            stream)
+            _plan_code_of(n), batch, n, m, *config, int(inverse), layout, pieces, items,
+            log2big, offset, sign, stream)
     _build.check(lib, code, "fft_cols")
     LAUNCHES["fft_cols"] += 1
 
 
 def _launch_fft_cols(re: torch.Tensor, im: torch.Tensor, inverse: bool, fold,
-                     donate: bool, tile: Optional[int] = None):
-    """Launch K7 on [B, n, m] planes. ``tile`` overrides :func:`cols_tile`:
-    the card's measurement of the tile widths uses it, no path does."""
+                     donate: bool, config=None):
+    """Launch K7 on [B, n, m] planes. ``config`` = (tile, cluster)
+    overrides :func:`cols_config`: the card's measurement of the instances
+    uses it, no path does."""
     _check_cols_planes(re, im)
     re, im = re.contiguous(), im.contiguous()
     ore, oim = (re, im) if donate else (torch.empty_like(re), torch.empty_like(im))
     batch, n, m = re.shape
-    tile = _check_cols_tile(n, cols_tile(n, m) if tile is None else tile)
+    config = _check_cols_config(n, config)
     if batch * m == 0:
         return ore, oim
-    _launch_cols_kernel(re, im, ore, oim, batch, n, m, tile, fold, inverse)
+    _launch_cols_kernel(re, im, ore, oim, batch, n, m, config, _check_fold(fold, n, m),
+                        inverse)
     return ore, oim
 
 
@@ -1474,16 +1608,17 @@ def fft_cols_cuda(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
     row order in and out; the forward transform is unnormalised, the
     inverse scales by 1/n. Power-of-two n in 256..4096, any m.
 
-    ``fold`` = (cos, sin), two (n, m) grids in natural row order: the
-    forward result is multiplied by cos + i*sin, the inverse's input is
-    multiplied by it before the transform (the inter-stage twiddle of
-    :mod:`ops.fft_big` rides the kernel and costs no pass of its own).
+    ``fold``: the forward result is multiplied by it, the inverse's input
+    before the transform (the inter-stage twiddle of :mod:`ops.fft_big`
+    rides the kernel and costs no pass of its own). A :class:`Twiddle` is
+    generated in the kernel; (cos, sin), two (n, m) grids in natural row
+    order, are read.
 
     donate=True lets the kernel write the result into ``re``/``im`` (which
-    must be contiguous and dead after the call): each block reads its whole
-    tile of columns into registers before it writes (a barrier lies
-    between), and tiles are disjoint, so in place is safe. A CPU tensor runs :func:`fft_cols_plain`;
-    donate has no effect there.
+    must be contiguous and dead after the call): a barrier lies between a
+    tile's last load and its first store, and tiles are disjoint, so in
+    place is safe. A CPU tensor runs :func:`fft_cols_plain`; donate has no
+    effect there.
     """
     if re.ndim < 2 or re.shape != im.shape:
         raise ValueError(f"fft_cols takes two [..., n, m] planes, got "
@@ -1494,9 +1629,7 @@ def fft_cols_cuda(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
             f"column FFT size must be a power of two > {MAX_DFT_N}, got {n}")
     if n > MAX_COLS_N:
         raise ValueError(f"the column FFT covers n <= {MAX_COLS_N}, got {n}")
-    if fold is not None and any(tuple(g.shape) != (n, m) for g in fold):
-        raise ValueError(f"fold grids must be two ({n}, {m}) arrays, got "
-                         f"{[tuple(g.shape) for g in fold]}")
+    fold = _check_fold(fold, n, m)
     if not (re.is_cuda or im.is_cuda):
         return fft_cols_plain(re, im, inverse, fold)
     if donate and not (re.is_contiguous() and im.is_contiguous()):

@@ -16,8 +16,11 @@ The local transforms are the port's kernels: forward, K7 down the columns
 with the inter-stage twiddle folded into its store (CUDA float32, 128 < N2
 <= 4096), else ``ops.dispatch.fft`` over axis -2 and the twiddle multiply;
 then K2 along the rows. Inverse: K2 inverse along the rows, the turn, and
-K7 inverse down the columns with the twiddle folded into its load; off the
-kernels, ``ops.dispatch.ifft`` and the twiddle multiply before the turn.
+K7 inverse down the columns with the twiddle folded into its load (on one
+rank, whose turn is the identity, K2 then K7 in place); off the kernels,
+``ops.dispatch.ifft`` and the twiddle multiply before the turn. K7
+generates the twiddle of the rank's columns (``fft_cuda.Twiddle`` with
+their offset), the same values as the one-card call's.
 
 Comm/compute overlap: the turn is split into ``chunks`` pieces, each
 followed by its own local FFT, and every piece's transfer starts before
@@ -48,8 +51,7 @@ import torch
 from ..core.complex import (ComplexArray, as_complex_array, is_power_of_two,
                             tensor_to_numpy)
 from ..ops.dispatch import fft as _fft, get_fft_impl, ifft as _ifft
-from ..ops.fft_big import _interstage_grids
-from ..ops.fft_cuda import (MAX_COLS_N, MAX_DFT_N, MAX_TURNED_N, MIN_TURNED_N,
+from ..ops.fft_cuda import (MAX_COLS_N, MAX_DFT_N, MAX_TURNED_N, MIN_TURNED_N, Twiddle,
                             fft_cols_cuda, fft_cols_pieces_cuda, fft_rows_pieces_cuda)
 from ..ops.fft_fourstep import _twiddle_grid
 from ._comm import _write, all_to_all, exchange
@@ -82,16 +84,6 @@ def _twiddles(n2: int, n1: int, sign: float, dtype: torch.dtype,
     (``ops.fft_fourstep._twiddle_grid``, float64, rounded once)."""
     return tuple(torch.from_numpy(g).to(device=device, dtype=dtype)
                  for g in _twiddle_grid(n2 * n1, n2, n1, sign))
-
-
-@functools.lru_cache(maxsize=8)
-def _fold_grids(n2: int, n1: int, off: int, width: int, device: torch.device,
-                sign: float = -1.0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Columns off:off+width of the natural-order float32 inter-stage grid
-    (``ops.fft_big._interstage_grids``; -1 forward, +1 inverse) that K7
-    folds in."""
-    return tuple(torch.from_numpy(np.ascontiguousarray(g[:, off:off + width])).to(device)
-                 for g in _interstage_grids(n2, n1, sign))
 
 
 def _cmul(re, im, c, s):
@@ -174,14 +166,14 @@ def _forward(xr: torch.Tensor, xi: torch.Tensor, mesh, axis, n2: int, n1: int,
         bc = nbat // chunks
         sr, si = fft_cols_pieces_cuda(
             xr.reshape(nbat, n2, loc), xi.reshape(nbat, n2, loc), (d, bc),
-            fold=_fold_grids(n2, n1, n1_off, loc, xr.device))
+            fold=Twiddle(n2 * n1, n1_off))
         ore, oim = _turn_pieces(
             sr, si, mesh, axis, (nbat, n2 // d, n1),
             lambda got, out: fft_rows_pieces_cuda(*got, (d, bc), load=True, out=out))
         return ore.reshape(b + (n2 // d, n1)), oim.reshape(b + (n2 // d, n1))
     if cols_fold:
         # Steps 1+2 fused: K7 with the twiddle W^(n1*k2) on its store.
-        tr, ti = fft_cols_cuda(xr, xi, fold=_fold_grids(n2, n1, n1_off, loc, xr.device))
+        tr, ti = fft_cols_cuda(xr, xi, fold=Twiddle(n2 * n1, n1_off))
     else:
         # 1. local DFT over n2 (full columns of this rank's n1 block).
         o = _fft(ComplexArray(xr, xi), axis=-2)
@@ -197,7 +189,7 @@ def _forward(xr: torch.Tensor, xi: torch.Tensor, mesh, axis, n2: int, n1: int,
 
 
 def _inverse(pr: torch.Tensor, pi: torch.Tensor, mesh, axis, n2: int, n1: int,
-             d: int, chunks: int, pieces: bool):
+             d: int, chunks: int, cols_fold: bool, pieces: bool):
     b = pr.shape[:-2]
     nbat = math.prod(b)
     if pieces:
@@ -211,15 +203,24 @@ def _inverse(pr: torch.Tensor, pi: torch.Tensor, mesh, axis, n2: int, n1: int,
         loc = n1 // d
         sr, si = fft_rows_pieces_cuda(pr.reshape(nbat, n2 // d, n1),
                                       pi.reshape(nbat, n2 // d, n1), (d, bc), inverse=True)
-        grids = _fold_grids(n2, n1, _flat_index(mesh, axis) * loc, loc, pr.device, 1.0)
+        twiddle = Twiddle(n2 * n1, _flat_index(mesh, axis) * loc, 1.0)
         ore, oim = _turn_pieces(
             sr, si, mesh, axis, (nbat, n2, loc),
-            lambda got, out: fft_cols_pieces_cuda(*got, (d, bc), inverse=True, fold=grids,
+            lambda got, out: fft_cols_pieces_cuda(*got, (d, bc), inverse=True, fold=twiddle,
                                                   load=True, out=out))
         return ore.reshape(b + (n2, loc)), oim.reshape(b + (n2, loc))
     # 1. local inverse DFT over k1 with 1/N1 (full rows of this rank's k2
     # block). The input is the caller's: not donated.
     o = _ifft(ComplexArray(pr, pi), axis=-1)
+    if d == 1 and cols_fold:
+        # One rank: the turn is the identity and the k2 block the whole
+        # grid, so 2+3+4 are K7 inverse over n2 with the twiddle W^(+n1*k2)
+        # on its load, in place in step 1's output (ifft_big_from_permuted's
+        # route): no twiddle pass of its own.
+        own = o.real.is_contiguous() and o.imag.is_contiguous()
+        ore, oim = fft_cols_cuda(o.real, o.imag, inverse=True, fold=Twiddle(n2 * n1, 0, 1.0),
+                                 donate=own)
+        return ore.reshape(b + (n2, n1)), oim.reshape(b + (n2, n1))
     # 2. twiddle W^(+n1*k2) for this rank's k2 rows.
     k2_off = _flat_index(mesh, axis) * (n2 // d)
     tc, ts = _twiddles(n2, n1, 1.0, pr.dtype, pr.device)
@@ -327,7 +328,8 @@ def dist_fft(x, mesh, axis: str = "x", inverse: bool = False,
             f"{extent}")
     pieces = _pieces_route(xc.real, n2, n1, d, chunks)
     if inverse:
-        ore, oim = _inverse(xc.real, xc.imag, mesh, axis, n2, n1, d, chunks, pieces)
+        ore, oim = _inverse(xc.real, xc.imag, mesh, axis, n2, n1, d, chunks,
+                            _on_k7(xc.real, n2), pieces)
     else:
         ore, oim = _forward(xc.real, xc.imag, mesh, axis, n2, n1, d, chunks,
                             _on_k7(xc.real, n2), pieces)

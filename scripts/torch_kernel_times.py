@@ -16,9 +16,13 @@ for the host's launch work, and queued behind a device spin ("queued_ms"),
 where the host has enqueued every launch before the first one runs, so
 the device's own time shows. The row and column FFTs are timed beside
 torch.fft.fft on the same points as one complex64 tensor (the library
-yardstick, with the grid multiply after it where K7 folds the grid in; the
-port never calls it). Only the public wrappers are called, so a checkout whose C
-entries differ is timed the same way; a row whose wrapper the checkout lacks
+yardstick, with the grid multiply after it where K7 folds the twiddle in;
+the port never calls it). K7 takes its twiddle as the checkout's wrapper
+does: generated (fft_cuda.Twiddle) where it has it, else the read grid;
+where the checkout has K7's pieced instances, its blocked store and load
+are timed at the 4-card dist_fft cell's rank, [256, 1024, 256] with D = 4.
+Only the public wrappers are called, so a checkout whose C entries differ
+is timed the same way; a row whose wrapper the checkout lacks
 (K2's turned instances before they existed) is left out. K1's, K2's and
 K4's rows carry a digest of their output on the seeded input: two checkouts
 whose digests agree give bit-equal results there (K1's peak instance, where
@@ -54,6 +58,7 @@ PFB_LONG_TPB = 16                        # more than K6 sums from registers
 PFB_CHANNELS = (256, 128, 1024, 16384)   # config 5's C first
 K7_SHAPES = ((64, 1024, 1024, True), (64, 1024, 1024, False), (64, 256, 4096, True),
              (16, 4096, 1024, True))     # [batch, n, m], with the fold
+K7_PIECES = (256, 1024, 256, 4)          # dist_fft's 4-card rank [B, N2, N1/D], D
 BIG_SHAPE = (64, 1 << 20)                # the large FFT's batch
 BIG_RULE_BITS = (22, 23, 24, 25)         # either side of the turned row stage's limit
 BIG_RULE_POINTS = 1 << 25                # a batch of 2^25 points at each size
@@ -178,21 +183,45 @@ def main() -> int:
             report(f"pfb {PFB_LONG_TPB} taps a branch", (frames, c),
                    lambda: pfb_cuda.pfb_channelize_frames_cuda(x, ltaps, c))
     del x
+    def twiddle(n, m, sign, total=None, off=0):
+        """K7's twiddle as the checkout's wrapper takes it: generated where
+        it has fft_cuda.Twiddle, else the read grid (PR 4-16)."""
+        total = total or m
+        if hasattr(fft_cuda, "Twiddle"):
+            return fft_cuda.Twiddle(n * total, off, sign)
+        g = _interstage_grids(n, total, sign)
+        return tuple(torch.from_numpy(np.ascontiguousarray(a[:, off:off + m])).to(dev)
+                     for a in g)
+
     for batch, n, m, with_fold in K7_SHAPES:
         re = torch.randn((batch, n, m), generator=gen, device=dev)
         im = torch.randn((batch, n, m), generator=gen, device=dev)
-        fold = (tuple(torch.from_numpy(g).to(dev) for g in _interstage_grids(n, m, -1.0))
-                if with_fold else None)
+        fold = twiddle(n, m, -1.0) if with_fold else None
         cplx = torch.complex(re, im)
-        grid = torch.complex(*fold) if with_fold else None
+        grid = (torch.complex(*(torch.from_numpy(g).to(dev) for g in _interstage_grids(n, m, -1.0)))
+                if with_fold else None)
         report("fft_cols with the fold" if with_fold else "fft_cols", (batch, n, m),
                lambda: fft_cuda.fft_cols_cuda(re, im, fold=fold),
                library=(lambda: torch.fft.fft(cplx, dim=-2) * grid) if with_fold
                else (lambda: torch.fft.fft(cplx, dim=-2)))
         if with_fold and (batch, n, m) == K7_SHAPES[0][:3]:
+            ifold = twiddle(n, m, 1.0)
             report("fft_cols inverse with the fold", (batch, n, m),
-                   lambda: fft_cuda.fft_cols_cuda(re, im, inverse=True, fold=fold))
+                   lambda: fft_cuda.fft_cols_cuda(re, im, inverse=True, fold=ifold))
         del cplx, grid
+    if hasattr(fft_cuda, "fft_cols_pieces_cuda"):
+        # the 4-card dist_fft cell's rank: K7's blocked store and load, D = 4
+        b, n, loc, d = K7_PIECES
+        re = torch.randn((b, n, loc), generator=gen, device=dev)
+        im = torch.randn((b, n, loc), generator=gen, device=dev)
+        fwd, inv = (twiddle(n, loc, sign, loc * d) for sign in (-1.0, 1.0))
+        report("fft_cols blocked store with the fold", (b, n, loc),
+               lambda: fft_cuda.fft_cols_pieces_cuda(re, im, (d, b), fold=fwd))
+        p = fft_cuda.fft_cols_pieces_cuda(re, im, (d, b), fold=fwd)
+        report("fft_cols blocked load inverse with the fold", (b, n, loc),
+               lambda: fft_cuda.fft_cols_pieces_cuda(*p, (d, b), inverse=True, fold=inv,
+                                                     load=True))
+        del p
     x = ComplexArray(torch.randn(BIG_SHAPE, generator=gen, device=dev),
                      torch.randn(BIG_SHAPE, generator=gen, device=dev))
     cplx = torch.complex(x.real, x.imag)

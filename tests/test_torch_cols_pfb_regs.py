@@ -42,6 +42,18 @@ def _cpu_is_the_default_device():
     set_default_device(previous)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """The step-by-step versions run many small tensor operations; with the
+    suite's parallel workers each on every core they wait on each other's
+    threads (the K7 tests here took 176 s with six workers, 21 s with one
+    thread a worker)."""
+    previous = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(previous)
+
+
 def _iq(seed, shape):
     rng = np.random.default_rng(seed)
     return rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
@@ -223,50 +235,85 @@ def test_pfb_blocks_wrapper_on_cpu_is_the_plain_version():
 
 @pytest.mark.parametrize("n", COLS_SIZES)
 def test_cols_tile_rule_and_check(n):
-    widest = min(32, 16384 // n)
-    assert fft_cuda.cols_tile(n, 4096) == widest
-    assert fft_cuda.cols_tile(n, 1) == min(widest, 8)
-    assert fft_cuda.cols_tile(n, 9) == min(widest, 16)
-    for tile in (1, 2, 3, 4, 8, 12, 16, 32, 64):
-        ok = (tile in (8, 16, 32) and n // 16 * tile <= 1024) or (n, tile) == (4096, 4)
-        if ok:
-            assert fft_cuda._check_cols_tile(n, tile) == tile
-        else:
-            with pytest.raises(ValueError, match="the column FFT kernel takes a tile"):
-                fft_cuda._check_cols_tile(n, tile)
+    """K7 launches n's (tile, cluster) of ``COLS_CONFIG``; it is built for a
+    tile of 16 or 32 columns (64- or 128-byte row segments) in clusters of
+    1 to 8 blocks of 512 or 1024 threads, n*tile/(16*cluster), and every
+    other choice raises."""
+    want = {256: (32, 1), 512: (16, 1), 1024: (16, 1), 2048: (32, 8), 4096: (16, 4)}[n]
+    assert fft_cuda.cols_config(n) == want
+    assert want in fft_cuda.cols_instances(n)
+    for tile in (4, 8, 16, 32, 64):
+        for cluster in (1, 2, 3, 4, 8, 16):
+            threads = n * tile // (16 * cluster)
+            ok = tile in (16, 32) and cluster in (1, 2, 4, 8) and threads in (512, 1024)
+            assert ((tile, cluster) in fft_cuda.cols_instances(n)) == ok
+            if ok:
+                assert fft_cuda._check_cols_config(n, (tile, cluster)) == (tile, cluster)
+            else:
+                with pytest.raises(ValueError, match="the column FFT kernel takes a tile"):
+                    fft_cuda._check_cols_config(n, (tile, cluster))
 
 
-@pytest.mark.parametrize("n,tile", [(n, tile) for n in COLS_SIZES for tile in (4, 8, 16, 32)
-                                    if n // 16 * tile <= 1024])
-def test_cols_exchange_bank_conflicts(n, tile):
+def _cols_words(n, tile, cluster, rows):
+    """Word of (local row, column) in a block's exchange plane, as
+    fft_cols_steps and the kernel address it."""
+    pad = fft_cuda.cols_pad_shift(tile, cluster)
+    return fft_cuda.exchange_at(np.asarray(rows), 0, pad)[..., None] * tile + np.arange(tile)
+
+
+@pytest.mark.parametrize("n,tile,cluster", [(n, *c) for n in COLS_SIZES
+                                            for c in fft_cuda.cols_instances(n)])
+def test_cols_exchange_bank_conflicts(n, tile, cluster):
     """Lanes run across the tile's columns first, so a warp touches 32/tile
-    rows at once. With one spare row after every 16, those rows fall in
-    different banks on every pass's store and on every reload: no conflict
-    at any size or tile width that 1024 threads hold; and the address is a
-    per-thread base plus a compile-time offset."""
-    log2w = tile.bit_length() - 1
-    at = lambda a: fft_cuda.exchange_at(a, log2w, fft_cuda.COLS_PAD_SHIFT)  # noqa: E731
+    rows at once: on pass 1's store into the owning block (local rows
+    r*G + t%G, G apart for the warp's two row-threads), on every later
+    pass's store and on every reload. With one spare row after every G
+    rows at 16 columns (none at 32), those fall in different banks: no
+    conflict for any instance; and a block's planes and twiddle tables fit
+    the shared memory of the blocks an SM holds."""
     lanes = n // 16
-    rows = np.arange(n)
-    assert len(set(at(rows).tolist())) == n and int(at(rows).max()) + tile <= at(n)
+    loc, g = lanes // cluster, 16 // cluster
+    block = loc * tile
+    local = n // cluster
+    words = _cols_words(n, tile, cluster, np.arange(local))
+    assert len(set(words.ravel().tolist())) == local * tile
+    plane = int(fft_cuda.exchange_at(local, 0, fft_cuda.cols_pad_shift(tile, cluster))) * tile
+    assert int(words.max()) < plane
+    per_sm = 1024 // block                                   # 64 registers a thread
+    # the planes, the B_q table, each thread's A, and the block's reserved KB
+    assert per_sm * (8 * plane + 8 * 16 * tile + 8 * block + 1024) <= 228 * 1024
+
+    def conflict_free(thread_rows, label):
+        for warp in range(0, block, 32):
+            thread = warp + np.arange(32)
+            col, i = thread % tile, thread // tile
+            banks = (_cols_words(n, tile, cluster, thread_rows(i))[np.arange(32), col]) % 32
+            assert np.bincount(banks).max() == 1, (n, tile, cluster, label, warp)
+
+    # every address is a per-thread base plus a constant (the kernel adds them)
+    at = lambda a: fft_cuda.exchange_at(np.asarray(a), 0,  # noqa: E731
+                                        fft_cuda.cols_pad_shift(tile, cluster))
+    i, r = np.arange(loc), np.arange(lanes)
+    for k in range(g):
+        np.testing.assert_array_equal(at(r * g + k), at(r * g) + at(k))
+    for q in range(16):
+        np.testing.assert_array_equal(at(i + loc * q), at(i) + at(loc * q))
+    for rank in range(cluster):
+        for t in range(16):                                  # pass 1's store
+            conflict_free(lambda i: (i + rank * loc) * g + t % g, ("pass 1", rank, t))
+    for q in range(16):                                      # every reload
+        conflict_free(lambda i: i + loc * q, ("reload", q))
     plan = fft_cuda.radix_plan(n)
-    ns = 1
-    for r in plan[:-1]:
-        m = 16 // r
-        for warp in range(0, lanes * tile, 32):
-            thread = warp + np.arange(min(32, lanes * tile - warp))
-            col, tid = thread % tile, thread // tile
-            for u in range(m):
-                j = tid + u * lanes
-                base = (j // ns) * ns * r + (j & (ns - 1))
-                for t in range(r):
-                    np.testing.assert_array_equal(at(base + t * ns), at(base) + at(t * ns))
-                    banks = (at(base + t * ns) + col) % 32
-                    assert np.bincount(banks).max() == 1, (n, tile, ns, u, t)
-            for q in range(16):
-                np.testing.assert_array_equal(at(tid + lanes * q), at(tid) + at(lanes * q))
-                banks = (at(tid + lanes * q) + col) % 32
-                assert np.bincount(banks).max() == 1, (n, tile, q)
+    ns = 16
+    for r in plan[1:-1]:                                     # the later passes' stores
+        nsl, m = ns // cluster, 16 // r
+        for u in range(m):
+            jl = i + u * loc
+            base = (jl // nsl) * nsl * r + jl % nsl
+            for t in range(r):
+                np.testing.assert_array_equal(at(base + t * nsl), at(base) + at(t * nsl))
+                conflict_free(lambda i: ((i + u * loc) // nsl) * nsl * r + (i + u * loc) % nsl
+                              + t * nsl, ("pass", ns, u, t))
         ns *= r
 
 
@@ -290,24 +337,27 @@ def test_cols_steps_match_plain_and_numpy_f64(n, inverse, with_fold):
         np.testing.assert_allclose(got, want, rtol=0, atol=F64_TOL)
 
 
-@pytest.mark.parametrize("n,m,tile", [(256, 100, 8), (256, 100, 16), (512, 37, 8),
-                                      (1024, 20, 8), (256, 5, 32)])
-def test_cols_steps_every_tile_width_gives_the_same(n, m, tile):
-    """The tile width changes which thread holds a point, not what is
-    computed: bit-equal to the default width in float32, batch axes kept,
-    input left as it was."""
+@pytest.mark.parametrize("n,m,config", [(512, 37, (32, 1)), (512, 37, (32, 2)),
+                                        (1024, 20, (16, 2)), (1024, 20, (32, 4)),
+                                        (2048, 9, (16, 4)), (4096, 5, (32, 8))])
+def test_cols_steps_every_tile_width_gives_the_same(n, m, config):
+    """The tile and the cluster change which block and thread hold a point,
+    not what is computed (the passes and the twiddles follow the true
+    index): bit-equal to n's own instance in float32, with a read grid and
+    with the generated twiddle, batch axes kept, input left as it was."""
     z = _iq(n + m, (2, 2, n, m)).astype(np.complex64)
     g = _iq(m, (n, m)).astype(np.complex64)
-    fold = (g.real.copy(), g.imag.copy())
     re, im = _planes(z, torch.float32)
     for inverse in (False, True):
-        want = fft_cuda.fft_cols_steps(re, im, inverse, fold)
-        got = fft_cuda.fft_cols_steps(re, im, inverse, fold, tile)
-        assert got[0].shape == (2, 2, n, m) and got[0].dtype == torch.float32
-        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        for fold in ((g.real.copy(), g.imag.copy()),
+                     fft_cuda.Twiddle(n * 64, 3, 1.0 if inverse else -1.0)):
+            want = fft_cuda.fft_cols_steps(re, im, inverse, fold)
+            got = fft_cuda.fft_cols_steps(re, im, inverse, fold, config)
+            assert got[0].shape == (2, 2, n, m) and got[0].dtype == torch.float32
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     np.testing.assert_array_equal(re.numpy(), z.real)
     with pytest.raises(ValueError, match="the column FFT kernel takes a tile"):
-        fft_cuda.fft_cols_steps(re, im, tile=64)
+        fft_cuda.fft_cols_steps(re, im, config=(64, 1))
 
 
 def _row_perm(n):
@@ -391,10 +441,15 @@ def test_k6_k7_sources_share_the_host_rules(source):
         assert 1 << consts["kMinLog2C"] == pfb_cuda.MIN_CHANNELS
         assert consts["kRegs"] == fft_cuda.MAX_RADIX
     else:
-        assert consts["kPadShift"] == fft_cuda.COLS_PAD_SHIFT
+        assert consts["kMinThreads"] == fft_cuda.COLS_MIN_THREADS
         assert consts["kMaxThreads"] == fft_cuda.COLS_MAX_THREADS
         assert consts["kRegs"] == fft_cuda.MAX_RADIX
         assert "kMinLog2N = 8, kMaxLog2N = 12" in text
         assert fft_cuda.MAX_COLS_N == 1 << 12 and fft_cuda.MAX_DFT_N == 1 << 7
-        assert "kMinLog2Tile = 3, kMaxLog2Tile = 5" in text
-        assert fft_cuda.COLS_TILES == (8, 16, 32)
+        tables = {k: [int(v) for v in vals.split(",")] for k, vals in
+                  regex.findall(r"constexpr int (k\w+)\[\] = \{([^}]*)\}", text)}
+        sizes = sorted(fft_cuda.COLS_CONFIG)
+        assert [1 << t for t in tables["kLog2Tile"]] == [fft_cuda.COLS_CONFIG[n][0] for n in sizes]
+        assert ([1 << c for c in tables["kLog2Cluster"]]
+                == [fft_cuda.COLS_CONFIG[n][1] for n in sizes])
+        assert fft_cuda.COLS_TILES == (16, 32)

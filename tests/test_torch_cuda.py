@@ -386,13 +386,20 @@ def test_k7_on_cuda(dev, batch, n, m):
         steps = fft_cuda.fft_cols_steps(re.double(), im.double(), inverse, fold64)
         assert _snr(host(steps), host(got)) >= 125.0
     assert _snr(host(fft_cuda.fft_cols_steps(re.double(), im.double())), host(fwd)) >= 125.0
-    # the tile width changes which thread holds a point, not the result
-    for tile in (8, 16, 32):
-        if n // 16 * tile <= 1024:
-            other = fft_cuda._launch_fft_cols(re, im, False, fold, False, tile=tile)
-            assert torch.equal(other[0], folded[0]) and torch.equal(other[1], folded[1])
+    # the tile and the cluster change which block and thread hold a point,
+    # not the result; the generated twiddle the same way
+    twiddle = fft_cuda.Twiddle(n * 1024, 3)
+    generated = fft_cuda.fft_cols_cuda(re, im, fold=twiddle)
+    tg = twiddle.grids(n, m)
+    assert _snr(_cplanes(np.fft.fft(z64, axis=-2) * (tg[0] + 1j * tg[1])),
+                host(generated)) >= 110.0
+    for config in fft_cuda.cols_instances(n):
+        other = fft_cuda._launch_fft_cols(re, im, False, fold, False, config)
+        assert torch.equal(other[0], folded[0]) and torch.equal(other[1], folded[1])
+        other = fft_cuda._launch_fft_cols(re, im, False, twiddle, False, config)
+        assert torch.equal(other[0], generated[0]) and torch.equal(other[1], generated[1])
     with pytest.raises(ValueError, match="the column FFT kernel takes a tile"):
-        fft_cuda._launch_fft_cols(re, im, False, None, False, tile=64)
+        fft_cuda._launch_fft_cols(re, im, False, None, False, (64, 1))
     dre, dim_ = re.clone(), im.clone()
     out = fft_cuda.fft_cols_cuda(dre, dim_, fold=fold, donate=True)
     assert out[0].data_ptr() == dre.data_ptr() and out[1].data_ptr() == dim_.data_ptr()

@@ -140,8 +140,9 @@ def test_to_pieces_and_back(axis):
 
 def _k7_rows(n: int, d: int, bc: int, batch: int) -> np.ndarray:
     """Where K7's pieced side puts natural row k2 of each item, as
-    csrc/fft_cols.cu computes it: register q of row-thread r holds
-    k2 = r + T*q, at base + q*step + (k2 >> log2h)*skip, in rows."""
+    csrc/fft_cols.cu computes it: register q of the row-thread whose first
+    row is r (r on the load, j on the store) holds k2 = r + T*q, at
+    base + q*step + (k2 >> log2h)*skip, in rows."""
     h = n // d
     log2h = h.bit_length() - 1
     t = n // fft_cuda.MAX_RADIX
@@ -192,9 +193,9 @@ def test_kernel_addresses_are_the_re_layout(d, chunks, n):
 def test_kernel_sources_hold_the_remap():
     """The expressions the numpy versions above repeat are the sources'."""
     cols = (_build.CSRC / "fft_cols.cu").read_text()
-    assert ("base = (((item - slot) << LOG2N) + (slot << log2h)) * m + g_at;" in cols
+    assert ("base = (((item - slot) << LOG2N) + (slot << log2h) + row0) * m + c;" in cols
             and "skip = (static_cast<size_t>(bc - 1) << log2h) * m;" in cols
-            and "static_cast<size_t>((r + (q << LOG2T)) >> log2h) * skip" in cols)
+            and "static_cast<size_t>((row0 + (q << LOG2T)) >> log2h) * skip" in cols)
     rows = (_build.CSRC / "fft_rows.cu").read_text()
     assert ("p_skip = static_cast<size_t>(cols - 1) << log2loc;" in rows
             and "static_cast<size_t>((tid + (q << LOG2T)) >> log2loc) * p_skip" in rows)
@@ -215,7 +216,7 @@ def test_cell_shape_keeps_whole_lines():
         for lane0 in (0, 32):
             words = at[5, lane0 + q * t: lane0 + q * t + 32]
             assert np.all(np.diff(words) == 1) and words[0] % 32 == 0
-    tile = fft_cuda.widest_cols_tile(n)
+    tile = fft_cuda.cols_config(n)[0]
     assert tile == 16
     rows = _k7_rows(n, d, 8, 16)
     m = 256

@@ -182,16 +182,23 @@ def test_k7_input_rules():
     assert out[0].shape == (256, 4)
 
 
-@pytest.mark.parametrize("n,m,want", [(256, 4096, 32), (1024, 1024, 16), (4096, 128, 4),
-                                      (512, 100, 32), (256, 3, 8), (2048, 1, 8)])
+@pytest.mark.parametrize("n,m,want", [(256, 4096, (32, 1)), (1024, 1024, (16, 1)),
+                                      (4096, 128, (16, 4)), (512, 100, (16, 1)),
+                                      (256, 3, (32, 1)), (2048, 1, (32, 8))])
 def test_k7_tile_fits_shared_memory(n, m, want):
-    """The tile is as wide as 1024 threads allow, up to a warp; shared
-    memory holds the padded [row][column] exchange tile of both planes."""
-    tile = fft_cuda.cols_tile(n, m)
-    assert tile == want and tile & (tile - 1) == 0
-    assert n // 16 * tile <= 1024
-    words = fft_cuda.exchange_at(n, tile.bit_length() - 1, fft_cuda.COLS_PAD_SHIFT)
-    assert words == (n + n // 16) * tile and 8 * words <= 227 * 1024
+    """A tile of whole 64- or 128-byte row segments whatever m (a ragged
+    tile is masked), in a cluster of blocks of 512 or 1024 threads; shared
+    memory holds a block's padded [row][column] exchange of both planes and
+    its twiddle tables (B_q of its columns, A of each thread), for the
+    blocks an SM holds."""
+    tile, cluster = fft_cuda.cols_config(n)
+    assert (tile, cluster) == want and -(-m // tile) >= 1
+    threads = n // 16 * tile // cluster
+    assert threads in (512, 1024)
+    pad = fft_cuda.cols_pad_shift(tile, cluster)
+    words = fft_cuda.exchange_at(n // cluster, 0, pad) * tile
+    assert words == (n // cluster + (n // cluster >> pad)) * tile
+    assert (1024 // threads) * (8 * words + 8 * 16 * tile + 8 * threads + 1024) <= 228 * 1024
 
 
 # ── ops.fft_big ──────────────────────────────────────────────────────

@@ -925,6 +925,57 @@ def test_optimal_chunks_matches_jax_with_the_same_constants(n2, n1, d, inverse):
     assert 1 <= c <= 8 and ((n1 if inverse else n2) // d) % c == 0
 
 
+def test_dist_ifft_on_one_rank_runs_no_twiddle_pass(monkeypatch):
+    """One rank, float32 with the kernels' route (impl "cuda": K2's and K7's
+    plain versions on this CPU): the turn is the identity and the rank's k2
+    block the whole grid, so dist_ifft is K2's inverse over k1 and then
+    K7's inverse with the +1 twiddle of the whole transform on its load, in
+    place, and the copy route's twiddle pass (``_cmul``) never runs. Held
+    to that route (impl "auto" here) and to the JAX package's dist_fft
+    inverse on a one-device mesh, float32 against float32."""
+    import importlib
+    from types import SimpleNamespace
+
+    import jax.numpy as jnp
+
+    from pragma_dsp_tpu import parallel as jp
+    from pragma_dsp_tpu.core import ComplexArray as JComplex
+    from pragma_dsp_tpu.parallel import make_mesh
+    from pragma_dsp_tpu_torch.ops import fft_cuda
+    pdist = importlib.import_module("pragma_dsp_tpu_torch.parallel.dist_fft")
+    n2, n1 = 256, 512
+    rng = np.random.default_rng(11)
+    z = (rng.standard_normal((2, n2, n1)) + 1j * rng.standard_normal((2, n2, n1)))
+    z = z.astype(np.complex64)
+    mesh = SimpleNamespace(shape=(1,), mesh_dim_names=("x",), get_coordinate=lambda: [0])
+    passes, folds = [], []
+    cmul, cols = pdist._cmul, pdist.fft_cols_cuda
+    monkeypatch.setattr(pdist, "_cmul", lambda *a: passes.append(1) or cmul(*a))
+    monkeypatch.setattr(pdist, "fft_cols_cuda",
+                        lambda *a, **k: folds.append((a[2:], k)) or cols(*a, **k))
+    previous = dispatch.get_fft_impl()
+    try:
+        dispatch.set_fft_impl("cuda")
+        got = pp.dist_ifft(_t(z), mesh)
+        assert not passes and len(folds) == 1
+        args, kw = folds[0]
+        assert kw["inverse"] and kw["fold"] == fft_cuda.Twiddle(n2 * n1, 0, 1.0)
+        dispatch.set_fft_impl("auto")
+        copy = pp.dist_ifft(_t(z), mesh)
+        assert passes
+    finally:
+        dispatch.set_fft_impl(previous)
+    got, copy = _np(got), _np(copy)
+    assert got.shape == copy.shape == (2, n2, n1) and got.dtype == np.complex64
+    ref = jp.dist_fft(JComplex(jnp.asarray(z.real), jnp.asarray(z.imag)),
+                      make_mesh((1,), ("x",)), "x", inverse=True)
+    ref = np.asarray(ref.real) + 1j * np.asarray(ref.imag)
+    exact = np.fft.ifft(np.swapaxes(z.astype(np.complex128), -1, -2).reshape(2, -1),
+                        axis=-1).reshape(2, n2, n1)
+    for other in (copy, ref, exact):
+        assert _snr_db(other, got) >= PIECES_RT_DB, _snr_db(other, got)
+
+
 def test_permuted_to_natural_host_matches_jax():
     import jax.numpy as jnp
 
