@@ -95,7 +95,12 @@ Phases (one line each; any failed gate exits non-zero):
      transforms; K1 as the main path launches it, its peak instance, and its
      amp+phase instance beside it), its plain version and the library; K6's blocked store
      beside its own bound, and K2's turned store and load on the large
-     FFT's rows beside theirs; the pieced instances dist_fft's turn runs
+     FFT's rows beside theirs; K2's turned store and load at every n from
+     256 to 4096 (each n's and direction's one instance: a block that
+     stages its own rows or a cluster, fft_cuda.TURN_CLUSTER), forward and inverse,
+     torch.equal to the row launch with the transpose and against their
+     plain version in float64, each timed queued on 2^26 points beside its
+     bound (listed under K2's instances); the pieced instances dist_fft's turn runs
      (K7's blocked store and load with the twiddle, K2's pieced load and
      store) at the 4-card cell's rank shape, [256, 1024, 256] with D = 4,
      against their plain version, torch.equal to the natural instance with
@@ -2035,6 +2040,48 @@ def main() -> int:
             f"[{BIG_BATCH}, {n1b}, {n2b}]): {ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
             f"({100 * bound_ms / ms:.1f}% of the time), row K2 on the same rows "
             f"{rows_ms:.4f} ms")
+    # K2's turned instance at every n in each direction (its cluster
+    # fft_cuda.TURN_CLUSTER's), forward and inverse: torch.equal to the row
+    # launch with the transpose, within K7_PLAIN_GATE_DB of the plain
+    # version in float64; then each timed queued on 2^26 points as
+    # [2^26/n^2, n, n] (the large FFT's square shapes), beside its bound
+    turned_rows = []
+    tgen = torch.Generator(device=dev).manual_seed(SEED)
+    for n in K7_ALL_N:
+        big = (1 << 26) // (n * n)
+        wide = tuple(torch.randn((big, n, n), generator=tgen, device=dev) for _ in range(2))
+        bound_ms, bound_by = bound(16 * big * n * n + 8 * n, big * n * fft_flops(n))
+        for load in (False, True):
+            what = "turned load" if load else "turned store"
+            cl = fft_cuda.TURN_CLUSTER[n][int(load)]
+            m = 2 * fft_cuda.turn_rows(n, load)
+            small = tuple(torch.randn((K7_ALL_BATCH, m, n), generator=tgen, device=dev)
+                          for _ in range(2))
+            src = tuple(t.transpose(1, 2).contiguous() for t in small) if load else small
+            worst = float("inf")
+            for inverse in (False, True):
+                got = fft_cuda.fft_rows_turned_cuda(*src, inverse, load)
+                rows = fft_cuda.fft_rows_cuda(*(t.reshape(-1, n) for t in small), inverse)
+                want = tuple(t.view(K7_ALL_BATCH, m, n) if load
+                             else t.view(K7_ALL_BATCH, m, n).transpose(1, 2) for t in rows)
+                gate(all(torch.equal(g, w) for g, w in zip(got, want)),
+                     f"K2 {what} n={n} inverse={inverse}: not torch.equal to the row launch "
+                     f"with the transpose")
+                ref = fft_cuda.fft_rows_turned_plain(*(t.double() for t in src), inverse, load)
+                worst = min(worst, dev_snr_db(ref, got))
+            gate(worst >= K7_PLAIN_GATE_DB,
+                 f"K2 {what} n={n}: {worst:.1f} dB against its plain version")
+            ms = timed(lambda: fft_cuda.fft_rows_turned_cuda(*wide, False, load),
+                       runs=7, inner=4, queued=True)
+            turned_rows.append({
+                "name": f"K2 {what}", "n": n, "cluster": cl, "shape": [big, n, n],
+                "queued_ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "snr_vs_plain_db": worst, "equal_to_rows_and_transpose": True})
+            say(f"[18] fft_rows, {what} n = {n}, cluster {cl} ({card}): torch.equal "
+                f"to the row launch with the transpose forward and inverse, {worst:.1f} dB "
+                f"against plain (gate >= {K7_PLAIN_GATE_DB}); queued at [{big}, {n}, {n}] "
+                f"{ms:.4f} ms, bound {bound_ms:.4f} ms ({100 * bound_ms / ms:.1f}%)")
+        del wide
     # The pieced instances of K7 and K2 (dist_fft's turn with no copy around
     # its all-to-all) at the 4-card cell's rank shape, one chunk: each held
     # against its plain version and torch.equal to the natural instance
@@ -2114,6 +2161,7 @@ def main() -> int:
             f"instance {nms:.4f} / {nqms:.4f}; bound {bound_ms:.4f} ms by {bound_by} "
             f"({100 * bound_ms / qms:.1f}% queued); plain {pms:.4f} ms, {s_plain:.1f} dB, "
             f"max|kernel-plain| {err:.3e}; torch.equal to the natural instance re-laid")
+    pieces_rows["fft_rows"] += turned_rows
     for entry in kernels:
         if entry["name"] in pieces_rows:
             entry["instances"] = pieces_rows[entry["name"]]

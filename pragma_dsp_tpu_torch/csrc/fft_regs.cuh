@@ -193,10 +193,24 @@ static __device__ __forceinline__ void butterflies(float (&xr)[R], float (&xi)[R
   }
 }
 
+// The barrier between a row's stores into its exchange and its reloads: the
+// block's, or the warp's where the caller's rows each lie in one warp
+// (WARP: row layout, at most 32 threads a row), so that the rows of a block
+// do not wait for each other.
+template <bool WARP>
+static __device__ __forceinline__ void sync_row() {
+  if constexpr (WARP) {
+    __syncwarp();
+  } else {
+    __syncthreads();
+  }
+}
+
 // One pass of radix 2^LOG of a row of 2^LOG2T threads, 2^LOG2NS the product
 // of the radices before it: twiddles (but for the first pass), butterflies
 // and, but for the last pass, the exchange (laid out by exchange_at).
-template <int R, int LOG, int LOG2T, int LOG2NS, bool LAST, int LOG2W, int PADSHIFT>
+template <int R, int LOG, int LOG2T, int LOG2NS, bool LAST, int LOG2W, int PADSHIFT,
+          bool WARP = false>
 static __device__ __forceinline__ void fft_pass(float (&xr)[R], float (&xi)[R],
                                                 float* sre, float* sim,
                                                 const float2* __restrict__ tw,
@@ -222,7 +236,7 @@ static __device__ __forceinline__ void fft_pass(float (&xr)[R], float (&xi)[R],
   }
   butterflies<R, LOG>(xr, xi);
   if constexpr (!LAST) {
-    if constexpr (!FIRST) __syncthreads();  // the reloads of the pass before are done
+    if constexpr (!FIRST) sync_row<WARP>();  // the reloads of the pass before are done
 #pragma unroll
     for (int u = 0; u < M; ++u) {
       const int j = tid + (u << LOG2T);
@@ -233,7 +247,7 @@ static __device__ __forceinline__ void fft_pass(float (&xr)[R], float (&xi)[R],
         sim[at + at_of(t << LOG2NS)] = xi[u + t * M];
       }
     }
-    __syncthreads();
+    sync_row<WARP>();
     const int at = at_of(tid);
 #pragma unroll
     for (int q = 0; q < R; ++q) {
@@ -248,18 +262,21 @@ static __device__ __forceinline__ void fft_pass(float (&xr)[R], float (&xi)[R],
 // block barriers); sre/sim are the row's own planes in shared memory
 // (unused by a one-pass plan); tw is the plan's pass table. For a column of
 // a tile, tid is the thread's index within its column and sre/sim point at
-// the column's word of the tile's row 0.
-template <int R, int LOG2T, int PLAN, int LOG2W = 0, int PADSHIFT = 5, int LOG2NS = 0>
+// the column's word of the tile's row 0. WARP: the exchanges sync the warp
+// only (sync_row).
+template <int R, int LOG2T, int PLAN, int LOG2W = 0, int PADSHIFT = 5, int LOG2NS = 0,
+          bool WARP = false>
 static __device__ __forceinline__ void fft_regs(float (&xr)[R], float (&xi)[R],
                                                 float* sre, float* sim,
                                                 const float2* __restrict__ tw,
                                                 int tid) {
+  static_assert(!WARP || (LOG2W == 0 && LOG2T <= 5), "a warp holds whole rows");
   if constexpr (PLAN != 0) {
     constexpr int LOG = PLAN & 15;
     static_assert(LOG >= 1 && LOG <= 4 && (1 << LOG) <= R, "radix 2..16, at most R");
-    fft_pass<R, LOG, LOG2T, LOG2NS, (PLAN >> 4) == 0, LOG2W, PADSHIFT>(xr, xi, sre, sim,
-                                                                      tw, tid);
-    fft_regs<R, LOG2T, (PLAN >> 4), LOG2W, PADSHIFT, LOG2NS + LOG>(
+    fft_pass<R, LOG, LOG2T, LOG2NS, (PLAN >> 4) == 0, LOG2W, PADSHIFT, WARP>(xr, xi, sre, sim,
+                                                                            tw, tid);
+    fft_regs<R, LOG2T, (PLAN >> 4), LOG2W, PADSHIFT, LOG2NS + LOG, WARP>(
         xr, xi, sre, sim, tw + (LOG2NS == 0 ? 0 : ((1 << LOG) - 1) << LOG2NS), tid);
   }
 }

@@ -7,11 +7,12 @@
 //
 // What bounds it on an H100: the frames are read once and the amplitude
 // and phase written once (12 bytes per sample with phase, 6 without), so
-// the floor is HBM bandwidth. The per-frame work is onesided_frame
-// (onesided.cuh), shared with K4: the real frame packed into n/2 complex
-// points, the register core of fft_regs.cuh, and an untangle fused with
-// the scaling and the stores. A frame has n/32 threads; a block has at
-// least 128, so it takes several frames when n < 4096.
+// the floor is HBM bandwidth; what holds it is the SM's instruction throughput
+// (onesided.cuh). The per-frame work is onesided_frame (onesided.cuh),
+// shared with K4: the real frame packed into n/2 complex points, the
+// register core of fft_regs.cuh, and an untangle fused with the scaling
+// and the stores. A frame has n/32 threads; a block has one warp's frames
+// (FrameBlock below), one frame from n = 1024.
 //
 // The peak instance (spectrum_onesided_kernel_peak) is spectrum()'s whole
 // call in one launch: besides amplitude and phase it writes each frame's
@@ -22,35 +23,61 @@
 // them by shuffles, and a frame that spans warps (n >= 2048) joins its
 // warps' winners through shared memory. The peak's phase is read back from
 // the row the block has just written. It adds 20 bytes a frame to the
-// 4n + 4(n + 2) the amp+phase instance moves. It takes 64 registers where
-// the amp+phase instance takes 56 (8 blocks an SM of 128 threads where that
-// one holds 9), and yet reads faster so than held to 56 registers or with
-// its amplitudes read back from the row (scripts/k1_peak_report.py
-// --variants).
+// 4n + 4(n + 2) the amp+phase instance moves; a running peak in the store
+// loop read faster than one held to fewer registers or read back from the
+// row (scripts/k1_peak_report.py --variants).
 #include "onesided.cuh"
 
 namespace {
 
+// K1's block: the frames of one warp where a frame has fewer threads than
+// a warp, else one frame (the register core's blocks hold at least 128
+// threads). A launch ends when its last wave of blocks does, and the
+// blocks of that wave hold the SMs at a fraction of the work; blocks of
+// one frame of n = 1024 (32 threads, 32 an SM at 64 registers) hold them
+// a quarter as long as the core's blocks of 4 frames did
+// (scripts/k2_k1_split.py on an "NVIDIA H100 80GB HBM3, 700.00 W": the
+// peak instance at [16384, 1024] 0.0633 ms against 0.0669 in blocks of 4
+// frames and 0.0669 of 2, all queued in one call; with blocks of 4 a
+// batch's cost a frame fell from 4.1 us a thousand frames at 16384 frames
+// to 3.5 at 65536: the last wave).
+constexpr int kFrameBlockThreads = 32;
+
 template <int LOG2H, int PLAN>
-__global__ void __launch_bounds__(RowShape<LOG2H, PLAN>::kBlock)
+struct FrameBlock {
+  using Row = RowShape<LOG2H, PLAN>;
+  static constexpr int kBlock =
+      Row::kThreads < kFrameBlockThreads ? kFrameBlockThreads : Row::kThreads;
+  static constexpr int kRows = kBlock / Row::kThreads;
+  static constexpr size_t kSmem =
+      (PLAN >> 4) != 0 ? 2 * sizeof(float) * kRows * static_cast<size_t>(Row::kStride) : 0;
+  // blocks an SM: as many as 56 registers a thread allow (1152 threads),
+  // at most the SM's 32
+  static constexpr int kMinBlocks = 1152 / kBlock < 32 ? 1152 / kBlock : 32;
+};
+
+template <int LOG2H, int PLAN>
+__global__ void __launch_bounds__(FrameBlock<LOG2H, PLAN>::kBlock,
+                                  FrameBlock<LOG2H, PLAN>::kMinBlocks)
 spectrum_onesided_kernel(const float* __restrict__ x,
                          const float* __restrict__ win, float* __restrict__ amp,
                          float* __restrict__ ph, const float* __restrict__ twc,
                          const float* __restrict__ tws,
                          const float2* __restrict__ tw, int batch, int pairs) {
   using Shape = RowShape<LOG2H, PLAN>;
+  using Block = FrameBlock<LOG2H, PLAN>;
   constexpr int N = 2 << LOG2H;
   extern __shared__ float smem[];
   const int local = threadIdx.x >> Shape::kLog2T;
   const int tid = threadIdx.x & (Shape::kThreads - 1);
-  const long long row = static_cast<long long>(blockIdx.x) * Shape::kRows + local;
+  const long long row = static_cast<long long>(blockIdx.x) * Block::kRows + local;
   const bool active = row < batch;
   const size_t out_row = static_cast<size_t>(active ? row : 0) * (N / 2 + 1);
   float* sre = smem + local * Shape::kStride;
   const OneSidedOut<N> out = {amp + out_row, ph != nullptr ? ph + out_row : nullptr};
   onesided_frame<LOG2H, PLAN>(
       active ? x + static_cast<size_t>(row) * N : nullptr, pairs != 0, win, out,
-      twc, tws, tw, sre, sre + Shape::kRows * Shape::kStride, tid);
+      twc, tws, tw, sre, sre + Block::kRows * Shape::kStride, tid);
 }
 
 // Where the peak instance writes: the frequency axis (n/2 + 1 floats, block
@@ -75,7 +102,8 @@ static __device__ __forceinline__ float bin_frequency(int k, double step) {
 }
 
 template <int LOG2H, int PLAN>
-__global__ void __launch_bounds__(RowShape<LOG2H, PLAN>::kBlock)
+__global__ void __launch_bounds__(FrameBlock<LOG2H, PLAN>::kBlock,
+                                  FrameBlock<LOG2H, PLAN>::kMinBlocks)
 spectrum_onesided_kernel_peak(const float* __restrict__ x,
                               const float* __restrict__ win, float* __restrict__ amp,
                               float* __restrict__ ph, const float* __restrict__ twc,
@@ -83,12 +111,13 @@ spectrum_onesided_kernel_peak(const float* __restrict__ x,
                               const float2* __restrict__ tw, int batch, int pairs,
                               PeakOut peak) {
   using Shape = RowShape<LOG2H, PLAN>;
+  using Block = FrameBlock<LOG2H, PLAN>;
   constexpr int N = 2 << LOG2H;
   constexpr int T = Shape::kThreads;
   extern __shared__ float smem[];
   const int local = threadIdx.x >> Shape::kLog2T;
   const int tid = threadIdx.x & (T - 1);
-  const long long row = static_cast<long long>(blockIdx.x) * Shape::kRows + local;
+  const long long row = static_cast<long long>(blockIdx.x) * Block::kRows + local;
   const bool active = row < batch;
   const size_t out_row = static_cast<size_t>(active ? row : 0) * (N / 2 + 1);
   float* sre = smem + local * Shape::kStride;
@@ -96,7 +125,7 @@ spectrum_onesided_kernel_peak(const float* __restrict__ x,
   const OneSidedPeakOut<N> out = {amp + out_row, ph + out_row, &run};
   onesided_frame<LOG2H, PLAN>(
       active ? x + static_cast<size_t>(row) * N : nullptr, pairs != 0, win, out,
-      twc, tws, tw, sre, sre + Shape::kRows * Shape::kStride, tid);
+      twc, tws, tw, sre, sre + Block::kRows * Shape::kStride, tid);
   // The thread's winner in peak_beats' order and whether any of its bins
   // is > 0: Nyquist, the last bin, wins only when larger; a NaN is rare, so
   // a thread that met one finds its first NaN again in the bins it has just
@@ -137,7 +166,7 @@ spectrum_onesided_kernel_peak(const float* __restrict__ x,
     pos = pos || opos != 0;
   }
   if constexpr (T > 32) {
-    __shared__ PeakPart parts[Shape::kBlock / 32];
+    __shared__ PeakPart parts[Block::kBlock / 32];
     if ((threadIdx.x & 31) == 0) parts[threadIdx.x >> 5] = {v, k, pos};
     __syncthreads();  // the parts, and the row's phases for the read below
     if (tid == 0) {
@@ -165,7 +194,7 @@ spectrum_onesided_kernel_peak(const float* __restrict__ x,
     peak.freq[row] = bin_frequency(index, peak.step);
   }
   if (blockIdx.x == 0) {
-    for (int b = threadIdx.x; b <= N / 2; b += Shape::kBlock)
+    for (int b = threadIdx.x; b <= N / 2; b += Block::kBlock)
       peak.axis[b] = bin_frequency(b, peak.step);
   }
 }
@@ -182,20 +211,20 @@ struct Args {
 
 template <int LOG2H, int PLAN>
 int launch(const Args& a) {
-  using Shape = RowShape<LOG2H, PLAN>;
-  const int blocks = (a.batch + Shape::kRows - 1) / Shape::kRows;
+  using Block = FrameBlock<LOG2H, PLAN>;
+  const int blocks = (a.batch + Block::kRows - 1) / Block::kRows;
   const int pairs = reinterpret_cast<uintptr_t>(a.x) % 8 == 0;
   cudaError_t err;
   if (a.peak == nullptr) {
-    err = allow_smem(spectrum_onesided_kernel<LOG2H, PLAN>, Shape::kSmem);
+    err = allow_smem(spectrum_onesided_kernel<LOG2H, PLAN>, Block::kSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    spectrum_onesided_kernel<LOG2H, PLAN><<<blocks, Shape::kBlock, Shape::kSmem, a.stream>>>(
+    spectrum_onesided_kernel<LOG2H, PLAN><<<blocks, Block::kBlock, Block::kSmem, a.stream>>>(
         a.x, a.win, a.amp, a.ph, a.twc, a.tws, a.tw, a.batch, pairs);
   } else {
-    err = allow_smem(spectrum_onesided_kernel_peak<LOG2H, PLAN>, Shape::kSmem);
+    err = allow_smem(spectrum_onesided_kernel_peak<LOG2H, PLAN>, Block::kSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     spectrum_onesided_kernel_peak<LOG2H, PLAN>
-        <<<blocks, Shape::kBlock, Shape::kSmem, a.stream>>>(
+        <<<blocks, Block::kBlock, Block::kSmem, a.stream>>>(
             a.x, a.win, a.amp, a.ph, a.twc, a.tws, a.tw, a.batch, pairs, *a.peak);
   }
   return static_cast<int>(cudaGetLastError());

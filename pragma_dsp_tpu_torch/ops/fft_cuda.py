@@ -47,9 +47,11 @@ them.
 ``fft_rows_steps``, ``spectrum_amp_phase_steps``,
 ``spectrum_twosided_steps`` and ``fft_cols_steps`` repeat the register
 core's arithmetic step by step in PyTorch (thread, register and
-shared-memory address included), and ``spectrum_peak_steps`` K1's peak
-reduction: the tests hold them against the JAX package here and the
-kernels against them on the card.
+shared-memory address included), ``spectrum_peak_steps`` K1's peak
+reduction, and ``phase_steps`` and ``magnitude_steps`` the phase and the
+magnitude K1, K3 and K4 compute without atan2f and sqrtf: the tests hold
+them against the JAX package and float64 here and the kernels against
+them on the card.
 
 Each wrapper takes its plain version only because the tensor it was given
 lies on the CPU. For a CUDA tensor it launches its kernel or raises; there
@@ -101,6 +103,8 @@ __all__ = [
     "fft_rows_turned_cuda",
     "fft_rows_turned_plain",
     "turn_rows",
+    "rows_per_block",
+    "TURN_CLUSTER",
     "MIN_TURNED_N",
     "MAX_TURNED_N",
     "fft_rows_steps",
@@ -109,6 +113,9 @@ __all__ = [
     "pass_twiddles",
     "exchange_pad",
     "spectrum_amp_phase_steps",
+    "phase_steps",
+    "magnitude_steps",
+    "PHASE_POLY",
     "spectrum_twosided_steps",
     "framed_spectrum_amp_phase_steps",
     "fft_cols_cuda",
@@ -452,23 +459,78 @@ def _packed_real_bins_steps(x: torch.Tensor, n: int, window: str):
     return re2, im2
 
 
+# phase_of's polynomial in csrc/onesided.cuh, highest power first: atan(a)
+# = a*P(a^2) on [0, 1], the minimax fit of degree 8 (relative error 1.7e-8).
+PHASE_POLY = (0.002903554, -0.016283017, 0.043039385, -0.07533678, 0.10654679,
+              -0.14207134, 0.19993055, -0.33333093, 1.0)
+
+
+def phase_steps(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``phase_of`` of csrc/onesided.cuh (the phase K1, K4 write) step by
+    step in float32: the ratio of the smaller to the larger magnitude (both
+    scaled by 2^64 below 2^-64, its reciprocal rounded once, where the
+    card's rcp.approx is within 1 ulp), :data:`PHASE_POLY` by fused
+    multiply-adds (each rounded once, from float64), the octant's
+    reflections, y's sign; a NaN in gives a NaN."""
+    y, x = y.float(), x.float()
+    ax, ay = x.abs(), y.abs()
+    up = torch.where(torch.fmax(ax, ay) < 2.0 ** -64, 2.0 ** 64, 1.0).float()
+    big, small = torch.fmax(ax, ay) * up, torch.fmin(ax, ay) * up
+    a = torch.where(small == big, 1.0, small * (1.0 / big))
+    a = torch.where(big == 0.0, 0.0, a)
+    s = (a * a).double()
+    p = torch.full_like(a, PHASE_POLY[0])
+    for c in PHASE_POLY[1:]:
+        p = (p.double() * s + c).float()
+    r = a * p
+    r = torch.where(ay > ax, np.float32(np.pi / 2) - r, r)
+    r = torch.where(torch.signbit(x), np.float32(np.pi) - r, r)
+    r = torch.copysign(r, y)
+    return torch.where(torch.isnan(x) | torch.isnan(y), x + y, r)
+
+
+def magnitude_steps(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
+    """``magnitude`` of csrc/onesided.cuh (the amplitude K1, K3, K4 write,
+    before their scale) step by step in float32: v = re^2 + im^2 with one
+    fused multiply-add, the reciprocal square root rounded once (the card's
+    rsqrt.approx is within about 1 ulp of it), then one Newton step on the
+    root, q + (v - q^2)*r/2, each fused multiply-add rounded once (from
+    float64); 0 and infinity as they are, a NaN stays a NaN."""
+    re, im = re.float(), im.float()
+    v = (re.double() * re.double() + (im * im).double()).float()
+    r = torch.rsqrt(v.double()).float()
+    q = v * r
+    e = (-(q.double() * q.double()) + v.double()).float()
+    root = (e.double() * (0.5 * r).double() + q.double()).float()
+    return torch.where((v == 0.0) | torch.isinf(v), v, root)
+
+
 def spectrum_amp_phase_steps(x: torch.Tensor, n: int, window: str,
                              with_phase: bool = True, parts: bool = False):
     """K1's and K4's per-frame arithmetic step by step in PyTorch, for the
     tests (``csrc/onesided.cuh`` with its one-sided store): the packed real
     transform of :func:`_packed_real_bins_steps`, every bin scaled by 1/n
-    (the untangle gives 2*X between the edges). ``parts=True`` returns the
-    unscaled bins (re, im) of X instead of (amplitude, phase)."""
+    (the untangle gives 2*X between the edges), the magnitude and the phase
+    by the kernels' formulas (:func:`magnitude_steps`, :func:`phase_steps`)
+    in float32 and, in float64, where those float32 formulas would be the
+    whole error, by sqrt and atan2. ``parts=True`` returns the unscaled
+    bins (re, im) of X instead of (amplitude, phase)."""
     half = n // 2
     re2, im2 = _packed_real_bins_steps(x, n, window)
     if parts:
         re2[..., 1:half] *= 0.5
         im2[..., 1:half] *= 0.5
         return re2, im2
-    amp = torch.sqrt(re2 * re2 + im2 * im2) * (1.0 / n)
+    mag = (magnitude_steps(re2, im2) if re2.dtype == torch.float32
+           else torch.sqrt(re2 * re2 + im2 * im2))
+    amp = mag * (1.0 / n)
     amp[..., 0] = re2[..., 0].abs() * (1.0 / n)
     amp[..., half] = re2[..., half].abs() * (1.0 / n)
-    return (amp, torch.atan2(im2, re2)) if with_phase else (amp, None)
+    if not with_phase:
+        return amp, None
+    if re2.dtype == torch.float32:
+        return amp, phase_steps(im2, re2)
+    return amp, torch.atan2(im2, re2)
 
 
 def spectrum_twosided_steps(x: torch.Tensor, n: int, window: str) -> torch.Tensor:
@@ -488,7 +550,9 @@ def spectrum_twosided_steps(x: torch.Tensor, n: int, window: str) -> torch.Tenso
     half = n // 2
     re2, im2 = _packed_real_bins_steps(x, n, window)
     amp = torch.empty(x.shape[:-1] + (n,), dtype=x.dtype, device=x.device)
-    inner = torch.sqrt(re2 * re2 + im2 * im2)[..., 1:half] * (0.5 / n)
+    mag = (magnitude_steps(re2, im2) if re2.dtype == torch.float32
+           else torch.sqrt(re2 * re2 + im2 * im2))
+    inner = mag[..., 1:half] * (0.5 / n)
     amp[..., 1:half] = inner
     amp[..., half + 1:] = inner.flip(-1)
     amp[..., 0] = re2[..., 0].abs() * (1.0 / n)
@@ -782,8 +846,7 @@ def _launch_spectrum_peak(x: torch.Tensor, n: int, window: str, sample_rate: flo
     lib = _build.library()
     twc, tws, win = _device_tables(n, window, x.device)
     tw = _device_pass_twiddles(n // 2, x.device)
-    with (contextlib.nullcontext() if x.device.index == torch.cuda.current_device()
-          else torch.cuda.device(x.device)):
+    with _on_device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = lib.spectrum_onesided_peak_f32(
             x.data_ptr(), win.data_ptr(), amp.data_ptr(), ph.data_ptr(),
@@ -992,15 +1055,24 @@ def _check_rows_planes(re: torch.Tensor, im: torch.Tensor, n: int) -> None:
             "ops.dispatch.fft routes larger transforms (ops.fft_big)")
 
 
+def _on_device(device: torch.device):
+    """The context a launch on ``device`` runs in: none where it is the
+    current device (switching costs the host a few microseconds a launch,
+    as long as a short kernel at one row), else a switch to it."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
 def _launch_rows_kernel(re, im, ore, oim, rows: int, n: int, cols: int,
                         turn: int, inverse: bool, pieces: int = 1) -> None:
     """One launch of K2 on contiguous float32 planes (``turn``: 0 rows in
     and out, 1 stored turned, 2 loaded turned, 3 loaded in pieces, 4 stored
-    in pieces; ``cols`` the turned width or the rows a chunk of pieces,
-    ``pieces`` their number)."""
+    in pieces; ``cols`` the turned width or the rows a chunk of pieces;
+    ``pieces`` their number, or the blocks a cluster of a turned launch)."""
     lib = _build.library()
     tw = _device_pass_twiddles(n, re.device)
-    with torch.cuda.device(re.device):
+    with _on_device(re.device):
         stream = torch.cuda.current_stream(re.device).cuda_stream
         code = lib.fft_rows_f32(re.data_ptr(), im.data_ptr(), ore.data_ptr(),
                                 oim.data_ptr(), tw.data_ptr(), _plan_code_of(n),
@@ -1046,13 +1118,32 @@ def fft_rows_cuda(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
     return fft_rows_plain(re, im, inverse)
 
 
-def turn_rows(n: int) -> int:
-    """Rows of one item a block of K2's turned instances holds (``turn_rows``
-    in csrc/fft_rows.cu): 8, so that the turned side's accesses cover
-    32-byte sectors whole, or fewer where 8 rows of n/16 threads would pass
-    1024 threads (4 at n = 4096). The turned width must be a multiple."""
-    threads = n // points_per_thread(n)
-    return 8 if threads * 8 <= 1024 else 1024 // threads
+def rows_per_block(n: int) -> int:
+    """Rows a block of K2's row instance holds (``RowShape::kRows`` in
+    csrc/fft_regs.cuh): one, or as many as fill 128 threads of n/16."""
+    return max(1, 128 // (n // points_per_thread(n)))
+
+
+# Blocks a cluster of K2's turned instance at each n, (turned store, turned
+# load): the faster of one block that stages its own rows (1) and clusters
+# of 8, 16 or 32 rows on an "NVIDIA H100 80GB HBM3, 700.00 W" (PERF.md;
+# scripts/k2_k1_split.py times the others). csrc/fft_rows.cu instantiates
+# these (kLog2TurnStoreCluster, kLog2TurnLoadCluster) and refuses another.
+TURN_CLUSTER = {256: (2, 2), 512: (1, 1), 1024: (1, 1), 2048: (1, 16), 4096: (8, 16)}
+
+
+def turn_rows(n: int, load: bool = False) -> int:
+    """Rows of one item a turned launch of K2 runs over on its turned side,
+    so that its accesses there cover that many consecutive words: a block
+    of 8 rows (or as many as 1024 threads hold) where it stages its own,
+    else its cluster of blocks (:data:`TURN_CLUSTER`, by direction) times
+    the row instance's rows a block. The turned width must be a
+    multiple."""
+    cluster = TURN_CLUSTER[n][int(load)]
+    if cluster == 1:
+        threads = n // points_per_thread(n)
+        return 8 if threads * 8 <= 1024 else 1024 // threads
+    return rows_per_block(n) * cluster
 
 
 def fft_rows_turned_plain(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
@@ -1097,15 +1188,18 @@ def fft_rows_turned_cuda(re: torch.Tensor, im: torch.Tensor, inverse: bool = Fal
     if not (re.is_cuda or im.is_cuda):
         return fft_rows_turned_plain(re, im, inverse, load)
     _check_rows_planes(re, im, n)
-    if not MIN_TURNED_N <= n <= MAX_TURNED_N or m % turn_rows(n) != 0:
-        raise ValueError(
-            f"the turned row FFT kernel takes n in {MIN_TURNED_N}..{MAX_TURNED_N} and "
-            f"a width that is a multiple of {turn_rows(n)}, got n = {n}, width {m}")
+    if not MIN_TURNED_N <= n <= MAX_TURNED_N:
+        raise ValueError(f"the turned row FFT kernel takes n in {MIN_TURNED_N}.."
+                         f"{MAX_TURNED_N}, got n = {n}")
+    if m % turn_rows(n, load) != 0:
+        raise ValueError(f"the turned row FFT kernel takes a width that is a multiple of "
+                         f"{turn_rows(n, load)} at n = {n}, got {m}")
     re, im = re.contiguous(), im.contiguous()
     out = (batch, m, n) if load else (batch, n, m)
     ore, oim = re.new_empty(out), im.new_empty(out)
     if batch * m:
-        _launch_rows_kernel(re, im, ore, oim, batch * m, n, m, 2 if load else 1, inverse)
+        _launch_rows_kernel(re, im, ore, oim, batch * m, n, m, 2 if load else 1, inverse,
+                            TURN_CLUSTER[n][int(load)])
     return ore, oim
 
 
@@ -1572,7 +1666,7 @@ def _launch_cols_kernel(re, im, ore, oim, batch: int, n: int, m: int, config, fo
                   .contiguous() for g in fold)
     lib = _build.library()
     tw = _device_pass_twiddles(n, re.device)
-    with torch.cuda.device(re.device):
+    with _on_device(re.device):
         stream = torch.cuda.current_stream(re.device).cuda_stream
         code = lib.fft_cols_f32(
             re.data_ptr(), im.data_ptr(), ore.data_ptr(), oim.data_ptr(),

@@ -31,7 +31,9 @@ behind a device spin, with the peak instance's registers and blocks an SM:
 * shipped: the source as it is;
 * held to 56 registers: the peak kernel's launch bounds ask for as many
   blocks an SM as 56 registers a thread give (the amp+phase instance's 9
-  blocks of 128 threads; 4 of 256, 2 of 512);
+  blocks of 128 threads; 4 of 256, 2 of 512); where K1's blocks hold one
+  warp's frames (32 an SM at 64 registers), blocks of 64 threads, 18 an SM
+  at 56;
 * peak_beats a bin: the store loop keeps its running peak by the whole
   order (peak_beats) instead of a strict > on the amplitude;
 * read back: the amplitudes are not carried through the untangle; after
@@ -90,11 +92,18 @@ READ_BACK = """  if (active) {
     }
   }
 {anchor}"""
-# (source, anchor, replacement): "{anchor}" in a replacement stands for it
+# (source, anchor, replacement): "{anchor}" in a replacement stands for it.
+# A variant is a list of patches, or a tuple of such lists of which the
+# first whose anchors are all in the sources applies.
 VARIANTS = {
     "shipped": [],
-    "held to 56 registers": [("spectrum_onesided.cu", PEAK_BOUNDS, PEAK_BOUNDS.replace(
-        "kBlock)", "kBlock, 65536 / (RowShape<LOG2H, PLAN>::kBlock * 56))"))],
+    "held to 56 registers": (
+        # blocks of one warp's frames hold 32 an SM at 64 registers; at 56
+        # the SM holds 18 of 64 threads
+        [("spectrum_onesided.cu", "constexpr int kFrameBlockThreads = 32;",
+          "constexpr int kFrameBlockThreads = 64;")],
+        [("spectrum_onesided.cu", PEAK_BOUNDS, PEAK_BOUNDS.replace(
+            "kBlock)", "kBlock, 65536 / (RowShape<LOG2H, PLAN>::kBlock * 56))"))]),
     "peak_beats a bin": [("onesided.cuh", "    sum += value;\n    if (value > m) {",
                           "    sum += value;\n    if (peak_beats(value, bin, m, k)) {")],
     "read back": [
@@ -182,22 +191,38 @@ def sass_digests(cuobjdump: str, obj: str) -> dict:
     return out
 
 
-def patched(csrc: str, dest: str, patches, occupancy: str) -> bool:
-    """csrc/ copied to dest with the patches applied and the occupancy and
-    error-string snippets appended to spectrum_onesided.cu; False if an
-    anchor is missing."""
+def patched(csrc: str, dest: str, patches, occupancy: str):
+    """csrc/ copied to dest with a variant's patches applied (the first of
+    its lists whose anchors are all in the sources) and the occupancy and
+    error-string snippets appended to spectrum_onesided.cu, the occupancy
+    asked of the block the kernels launch (FrameBlock where the source has
+    it); the patches applied, or None if no list applies."""
     shutil.copytree(csrc, dest)
-    for name, anchor, new in patches:
-        path = os.path.join(dest, name)
-        with open(path) as f:
-            text = f.read()
-        if anchor not in text:
-            return False
-        with open(path, "w") as f:
-            f.write(text.replace(anchor, new.replace("{anchor}", anchor)))
-    with open(os.path.join(dest, "spectrum_onesided.cu"), "a") as f:
+    texts = {}
+    for option in (patches if isinstance(patches, tuple) else (patches,)):
+        texts = {}
+        for name, anchor, new in option:
+            text = texts.get(name)
+            if text is None:
+                with open(os.path.join(dest, name)) as f:
+                    text = f.read()
+            if anchor not in text:
+                break
+            texts[name] = text.replace(anchor, new.replace("{anchor}", anchor))
+        else:
+            break
+    else:
+        return None
+    for name, text in texts.items():
+        with open(os.path.join(dest, name), "w") as f:
+            f.write(text)
+    path = os.path.join(dest, "spectrum_onesided.cu")
+    with open(path) as f:
+        if "struct FrameBlock" in f.read():
+            occupancy = occupancy.replace("RowShape<L, P>", "FrameBlock<L, P>")
+    with open(path, "a") as f:
         f.write(occupancy + ERROR_STRING)
-    return True
+    return option
 
 
 def time_variants(torch, fft_cuda, _build, load, logs, outs, dev, order) -> None:
@@ -280,7 +305,7 @@ def main() -> int:
         jobs = [(stem, os.path.join(tmp, "shipped"), ".o") for stem in SOURCES[1:]]
         for label, patches in variants.items():
             src_dir = os.path.join(tmp, re.sub(r"\W", "_", label))
-            if not patched(str(_build.CSRC), src_dir, patches, occupancy):
+            if patched(str(_build.CSRC), src_dir, patches, occupancy) is None:
                 print(f"{label}: not applicable to this source", flush=True)
                 continue
             jobs.append((SOURCES[0], src_dir, ".so"))

@@ -68,7 +68,8 @@ NO_STORE = [
      "if (mag == 12345.678f) out.bin(k, mag, re, im);"),
 ]
 LOADS_ONLY = [
-    ("onesided.cuh", "  fft_regs<R, LOG2T, PLAN>(xr, xi, sre, sim, tw, tid);\n",
+    # (the core's call, "<R, LOG2T, PLAN>" with or without its warp barrier)
+    ("onesided.cuh", "  fft_regs<R, LOG2T, PLAN",
      """  {
     float s = 0.0f;
 #pragma unroll

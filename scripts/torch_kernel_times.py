@@ -30,7 +30,10 @@ the checkout has it: the digest of its peak indices). The natural-order large
 FFT (fft_big, ifft_big) is timed at [64, 2^20] beside cuFFT, and at 2^22 to
 2^25 points (a batch of 2^25 points) beside the permuted route and the
 transpose, the measurement behind the widest row stage that fft_big turns
-inside K2. Prints the card (nvidia-smi name and power limit) and one JSON
+inside K2. K2's turned store and load are also timed at [2, 4096, 4096]
+(the 2^24 row stage) beside the row instance on the same points, and its
+pieced load and store at the 4-card dist_fft cell's rank rows,
+[256, 256, 1024] with D = 4. Prints the card (nvidia-smi name and power limit) and one JSON
 object per shape. Imports nothing of JAX.
 """
 
@@ -47,6 +50,8 @@ import sys
 import numpy as np
 
 K2_SHAPES = ((16384, 1024), (16384, 128), (1024, 16384), (65536, 1024), (1, 1024))
+K2_TURNED_WIDE = (2, 4096, 4096)         # [B, m, n]: the turned row stage at 2^24
+K2_PIECES = (256, 256, 1024, 4)          # dist_fft's 4-card rank rows [B, h, n], D
 K1_SHAPES = ((16384, 1024), (4096, 4096))
 K4_SHAPE = (128, 480000, 4096, 1024)     # [channels, samples], n, hop
 K3_SHAPES = ((59520, 4096), (16384, 128))    # config 2's frames; the small-n gate
@@ -137,6 +142,29 @@ def main() -> int:
                    lambda: fft_cuda.fft_rows_turned_cuda(r3, i3), with_digest=True)
             report("fft_rows turned load, inverse", (batch, n),
                    lambda: fft_cuda.fft_rows_turned_cuda(r3, i3, inverse=True, load=True))
+    if hasattr(fft_cuda, "fft_rows_turned_cuda"):
+        b, m, n = K2_TURNED_WIDE
+        r3 = torch.randn((b, m, n), generator=gen, device=dev)
+        i3 = torch.randn((b, m, n), generator=gen, device=dev)
+        report("fft_rows", (b * m, n),
+               lambda: fft_cuda.fft_rows_cuda(r3.view(-1, n), i3.view(-1, n)), with_digest=True)
+        report("fft_rows turned store", (b, m, n),
+               lambda: fft_cuda.fft_rows_turned_cuda(r3, i3), with_digest=True)
+        report("fft_rows turned load, inverse", (b, n, m),
+               lambda: fft_cuda.fft_rows_turned_cuda(r3, i3, inverse=True, load=True),
+               with_digest=True)
+        del r3, i3
+    if hasattr(fft_cuda, "fft_rows_pieces_cuda"):
+        # the 4-card dist_fft cell's rank: K2's pieced load and store, D = 4
+        b, h, n, d = K2_PIECES
+        rows = [torch.randn((b, h, n), generator=gen, device=dev) for _ in range(2)]
+        p = [fft_cuda.to_pieces(t, d, b, -1) for t in rows]
+        report("fft_rows pieced load", (b, h, n),
+               lambda: fft_cuda.fft_rows_pieces_cuda(*p, (d, b), load=True), with_digest=True)
+        report("fft_rows pieced store, inverse", (b, h, n),
+               lambda: fft_cuda.fft_rows_pieces_cuda(*rows, (d, b), inverse=True),
+               with_digest=True)
+        del rows, p
     for batch, n in K1_SHAPES:
         x = torch.randn((batch, n), generator=gen, device=dev)
         report("spectrum_onesided amp+phase", (batch, n),

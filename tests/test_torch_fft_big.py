@@ -11,6 +11,9 @@ there, and chip_smoke.py is its evidence; tests/test_torch_cols_pfb_regs.py
 holds its step-by-step version."""
 
 import importlib
+import importlib.util
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -377,59 +380,155 @@ def test_turned_rows_input_rules():
                                       load=True)
 
 
-def _turned_accesses(n):
-    """For each q, K2's turned side as csrc/fft_rows.cu addresses it, for a
-    block of turn_rows(n) rows at j0 = 0 of an item of cols = 2 * G
-    columns: (thread, staging word, device word) of every thread."""
-    g_rows = fft_cuda.turn_rows(n)
-    threads = g_rows * (n // fft_cuda.points_per_thread(n))
-    stride = n + 32 // g_rows
-    cols = 2 * g_rows
+_spec = importlib.util.spec_from_file_location(
+    "k2_k1_split", Path(__file__).resolve().parent.parent / "scripts" / "k2_k1_split.py")
+_split = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(_split)
+
+
+def _run_rows(n, cluster):
+    """Rows of one run of a turned launch of n in ``cluster`` blocks: a
+    block of 8 rows that stages its own (as many as 1024 threads hold), or
+    the cluster's row-instance blocks."""
+    if cluster == 1:
+        threads = n // fft_cuda.points_per_thread(n)
+        return 8 if threads * 8 <= 1024 else 1024 // threads
+    return fft_cuda.rows_per_block(n) * cluster
+
+
+def _turned_accesses(n, cluster):
+    """K2's turned side as csrc/fft_rows.cu addresses it, for one run of
+    _run_rows(n, cluster) rows at j0 = 0 of an item of cols = 2 * RR
+    columns, held by ``cluster`` blocks: for each block (rank) and q, the
+    turned side's (thread, staging word, device word), and for each block
+    and register q the row side's (thread, block whose staging holds the
+    point, staging word, row, point)."""
+    rr = _run_rows(n, cluster)
+    regs = fft_cuda.points_per_thread(n)
+    t = n // regs
+    rows = rr // cluster                      # rows a block
+    threads = rows * t
+    share = n // cluster                      # points a block turns
+    stride = share + 32 // rr
+    cols = 2 * rr
     i = np.arange(threads)
-    g, k = i % g_rows, i // g_rows
-    kstep = threads // g_rows
-    return [(i, g * stride + k + q * kstep, (k + q * kstep) * cols + g)
-            for q in range(fft_cuda.points_per_thread(n))], g_rows, stride, cols
+    r, kk = i % rr, i // rr
+    kstep = threads // rr
+    turned = [(rank, [(i, r * stride + kk + q * kstep,
+                       (rank * share + kk + q * kstep) * cols + r) for q in range(regs)])
+              for rank in range(cluster)]
+    local, tid = i // t, i % t
+    per = regs // cluster                     # registers a block turns
+    row_side = [(rank, [(i, np.full(threads, q // per),
+                         (rank * rows + local) * stride + tid + (q % per) * t,
+                         rank * rows + local, tid + t * q) for q in range(regs)])
+                for rank in range(cluster)]
+    return turned, row_side, rr, stride, cols
+
+
+# Every cluster K2's turned kernel is built in at each n: the shipped one
+# of each direction and those of scripts/k2_k1_split.py's turned designs.
+_TURNED = sorted({(n, c) for n in (256, 512, 1024, 2048, 4096)
+                  for c in fft_cuda.TURN_CLUSTER[n]}
+                 | {(n, c[0]) for log2cs in _split.K2_TURN_DESIGNS.values()
+                    for n, c in _split.turn_host_table(log2cs).items()})
 
 
 @pytest.mark.parametrize("n", [256, 512, 1024, 2048, 4096])
 def test_turned_side_is_conflict_free_and_sector_whole(n):
-    """The turned side of a block: each warp's 32 staging words lie in 32
-    banks; in device memory it touches runs of G consecutive words that
-    start at a multiple of G (8 words: one 32-byte sector whole); over the
-    block's q every point of every row is touched once, and the staging
-    fits the exchange (n + n/32 words a row)."""
-    accesses, g_rows, stride, cols = _turned_accesses(n)
-    assert stride <= n + n // 32
-    staged, touched = [], []
-    for i, word, at in accesses:
-        for w in range(0, len(i), 32):
-            assert len(set(word[w:w + 32] % 32)) == 32
-            runs = np.sort(at[w:w + 32]).reshape(-1, g_rows)
-            assert (runs[:, 0] % g_rows == 0).all()
-            assert (np.diff(runs, axis=1) == 1).all()
-        staged.append(word)
-        touched.append(at)
-    staged, touched = np.concatenate(staged), np.concatenate(touched)
-    rows, points = np.divmod(staged, stride)
-    assert sorted(zip(rows, points)) == [(r, k) for r in range(g_rows) for k in range(n)]
-    assert sorted(touched % cols) == sorted(np.repeat(np.arange(g_rows), n))
-    assert len(set(touched)) == g_rows * n
+    """The instances each n launches turn runs of at least 8 rows: every
+    32-byte sector of their turned side whole (the addressing as below)."""
+    for load in (False, True):
+        assert fft_cuda.turn_rows(n, load) >= 8
+        _check_turned_side(n, fft_cuda.TURN_CLUSTER[n][load])
+
+
+@pytest.mark.parametrize("n,cluster", _TURNED)
+def test_every_turned_instance_is_conflict_free_and_runs_whole(n, cluster):
+    _check_turned_side(n, cluster)
+
+
+def _check_turned_side(n, cluster):
+    """The turned side of a run: each warp's 32 staging words lie in 32
+    banks; in device memory it touches runs of RR consecutive words that
+    start at a multiple of RR (RR = 8: a 32-byte sector, 16: 64 bytes);
+    over the blocks and their q every point of every row is touched once,
+    and the staging fits the exchange of the block's rows."""
+    turned, _, rr, stride, cols = _turned_accesses(n, cluster)
+    rows_a_block = rr // cluster
+    exchange = rows_a_block * (n + n // 32 + (n // 16 if n // 16 < 32 else 0))
+    assert rr * stride <= exchange
+    touched = []
+    for _, accesses in turned:
+        for i, word, at in accesses:
+            for w in range(0, len(i), 32):
+                assert len(set(word[w:w + 32] % 32)) == 32
+                runs = np.sort(at[w:w + 32]).reshape(-1, rr)
+                assert (runs[:, 0] % rr == 0).all()
+                assert (np.diff(runs, axis=1) == 1).all()
+            touched.append(at)
+    touched = np.concatenate(touched)
+    assert len(set(touched)) == rr * n
+    assert sorted(touched % cols) == sorted(np.repeat(np.arange(rr), n))
+
+
+@pytest.mark.parametrize("n,cluster", _TURNED)
+def test_turned_row_side_meets_the_turned_side(n, cluster):
+    """The row side of a run: register q of a thread (point tid + T*q of
+    its row) lies in the staging of block q / (16 / cluster) at the word
+    the turned side of that block reads or writes for that row and point;
+    a warp's accesses are consecutive words of one block (a row of at least
+    32 threads) and every (block, word) of the staging is touched once from
+    each side."""
+    turned, row_side, rr, stride, _ = _turned_accesses(n, cluster)
+    t = n // fft_cuda.points_per_thread(n)
+    share = n // cluster
+    seen_turned, seen_rows = set(), set()
+    for rank, accesses in turned:
+        for _, word, at in accesses:
+            row = word // stride
+            point = rank * share + word % stride
+            seen_turned.update(zip([rank] * len(word), word, row, point))
+    for _, accesses in row_side:
+        for i, owner, word, row, point in accesses:
+            assert (point // share == owner).all()
+            if t >= 32:
+                for w in range(0, len(i), 32):
+                    assert len(set(owner[w:w + 32])) == 1
+                    assert (np.diff(word[w:w + 32]) == 1).all()
+            seen_rows.update(zip(owner, word, row, point))
+    assert seen_rows == seen_turned
+    assert len(seen_rows) == rr * n
 
 
 def test_turned_instances_match_the_host_rules():
-    """csrc/fft_rows.cu instantiates the turned store and load for n = 2^8
-    to 2^12 with the host's rows a block; fft_big turns its row stage up
-    to the widest of them and keeps the transpose above."""
+    """csrc/fft_rows.cu instantiates one turned store and one turned load
+    for each n = 2^8 to 2^12, in the host's cluster, and the host's run of
+    rows is the kernel's; fft_big turns its row stage up to the widest of
+    them and keeps the transpose above, with a width each takes."""
     text = (fft_cuda._build.CSRC / "fft_rows.cu").read_text()
     assert "kTurnMinLog2N = 8, kTurnMaxLog2N = 12" in text
     assert fft_cuda.MIN_TURNED_N == 1 << 8 and fft_cuda.MAX_TURNED_N == 1 << 12
     assert "return threads * 8 <= 1024 ? 8 : 1024 / threads;" in text
-    assert [fft_cuda.turn_rows(1 << b) for b in range(8, 13)] == [8, 8, 8, 8, 4]
+
+    def table(name):
+        found = re.findall(r"constexpr int " + name + r"\[\] = \{([^}]*)\};", text)
+        assert len(found) == 1
+        return [1 << int(v) for v in found[0].split(",")]
+
+    sizes = [1 << b for b in range(8, 13)]
+    assert table("kLog2TurnStoreCluster") == [fft_cuda.TURN_CLUSTER[n][0] for n in sizes]
+    assert table("kLog2TurnLoadCluster") == [fft_cuda.TURN_CLUSTER[n][1] for n in sizes]
+    for n in sizes:
+        for load in (False, True):
+            assert fft_cuda.turn_rows(n, load) == _run_rows(n, fft_cuda.TURN_CLUSTER[n][load])
+    assert [_run_rows(n, 1) for n in sizes] == [8, 8, 8, 8, 4]
+    assert [fft_cuda.rows_per_block(n) for n in sizes] == [8, 4, 2, 1, 1]
     for bits in range(16, 27):
         n2b, n1b = pbig.big_split(1 << bits)
         if n1b <= fft_cuda.MAX_TURNED_N:
             assert n2b % fft_cuda.turn_rows(n1b) == 0
+            assert n2b % fft_cuda.turn_rows(n1b, load=True) == 0
 
 
 # ── dispatch ─────────────────────────────────────────────────────────

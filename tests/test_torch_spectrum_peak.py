@@ -277,11 +277,11 @@ def test_bin_frequency_rule_is_bin_frequencies(rate):
 def test_every_report_variant_applies_to_the_sources(label, tmp_path):
     """scripts/k1_peak_report.py's variants find their anchors in csrc/ and
     change only the copy; every copy gets the occupancy entry."""
-    patches = k1_peak_report.VARIANTS[label]
     before = {p.name: p.read_text() for p in _build.CSRC.glob("*.cu*")}
     dest = tmp_path / "csrc"
-    assert k1_peak_report.patched(str(_build.CSRC), str(dest), patches,
-                                  k1_peak_report.OCCUPANCY)
+    patches = k1_peak_report.patched(str(_build.CSRC), str(dest),
+                                     k1_peak_report.VARIANTS[label], k1_peak_report.OCCUPANCY)
+    assert patches is not None
     after = {p.name: p.read_text() for p in dest.glob("*.cu*")}
     assert {p.name: p.read_text() for p in _build.CSRC.glob("*.cu*")} == before
     touched = {name for name, _, _ in patches}
