@@ -48,6 +48,15 @@
 //   [(t-1)*Ns + k], so that a warp reads consecutive pairs. The host
 //   gathers it from the one n-entry float64-built table (rounded once);
 //   W_16^e are float literals rounded from double. No fast-math.
+// * The one-sided body (onesided.cuh: K1, K4, K3's packed route) keeps its
+//   exchange as (re, im) pairs instead (PAIR): a point is one 8-byte access
+//   where the planes take two 4-byte ones, half the shared-memory
+//   instructions of a pass. An 8-byte warp access is served in two
+//   half-warp phases of 16 pairs (128 bytes), so the padding is one spare
+//   pair after every 16 points (PADSHIFT 4 in pairs): the first pass's
+//   stride-16 store, the later stores (runs of 16 points) and every reload
+//   then touch 16 different 8-byte bank pairs in each phase; at n = 128
+//   points the first pass (radix 8, two rows a phase) is a 2-way conflict.
 // * A transform may also run down the columns of a tile (K7): point a of a
 //   column is then row a of a [row][column] tile, 2^LOG2W words wide, and
 //   the lanes of a warp run across the columns first. The exchange keeps
@@ -208,9 +217,10 @@ static __device__ __forceinline__ void sync_row() {
 
 // One pass of radix 2^LOG of a row of 2^LOG2T threads, 2^LOG2NS the product
 // of the radices before it: twiddles (but for the first pass), butterflies
-// and, but for the last pass, the exchange (laid out by exchange_at).
+// and, but for the last pass, the exchange (laid out by exchange_at; with
+// PAIR, in float2 pairs from sre, sim unused).
 template <int R, int LOG, int LOG2T, int LOG2NS, bool LAST, int LOG2W, int PADSHIFT,
-          bool WARP = false>
+          bool WARP = false, bool PAIR = false>
 static __device__ __forceinline__ void fft_pass(float (&xr)[R], float (&xi)[R],
                                                 float* sre, float* sim,
                                                 const float2* __restrict__ tw,
@@ -223,7 +233,11 @@ static __device__ __forceinline__ void fft_pass(float (&xr)[R], float (&xi)[R],
   if constexpr (!FIRST) {
 #pragma unroll
     for (int u = 0; u < M; ++u) {
-      const float2* twk = tw + ((tid + (u << LOG2T)) & (NS - 1));
+      // k = (tid + u*T) mod NS; with PAIR, as a per-thread base and a
+      // constant (T and NS are powers of two), so that a load takes no
+      // address arithmetic of its own
+      const float2* twk = PAIR ? tw + (tid & (NS - 1)) + ((u << LOG2T) & (NS - 1))
+                               : tw + ((tid + (u << LOG2T)) & (NS - 1));
 #pragma unroll
       for (int t = 1; t < RADIX; ++t) {
         const float2 w = __ldg(twk + (t - 1) * NS);
@@ -243,16 +257,27 @@ static __device__ __forceinline__ void fft_pass(float (&xr)[R], float (&xi)[R],
       const int at = at_of(((j >> LOG2NS) << (LOG2NS + LOG)) + (j & (NS - 1)));
 #pragma unroll
       for (int t = 0; t < RADIX; ++t) {
-        sre[at + at_of(t << LOG2NS)] = xr[u + t * M];
-        sim[at + at_of(t << LOG2NS)] = xi[u + t * M];
+        if constexpr (PAIR) {
+          reinterpret_cast<float2*>(sre)[at + at_of(t << LOG2NS)] =
+              make_float2(xr[u + t * M], xi[u + t * M]);
+        } else {
+          sre[at + at_of(t << LOG2NS)] = xr[u + t * M];
+          sim[at + at_of(t << LOG2NS)] = xi[u + t * M];
+        }
       }
     }
     sync_row<WARP>();
     const int at = at_of(tid);
 #pragma unroll
     for (int q = 0; q < R; ++q) {
-      xr[q] = sre[at + at_of(q << LOG2T)];
-      xi[q] = sim[at + at_of(q << LOG2T)];
+      if constexpr (PAIR) {
+        const float2 v = reinterpret_cast<const float2*>(sre)[at + at_of(q << LOG2T)];
+        xr[q] = v.x;
+        xi[q] = v.y;
+      } else {
+        xr[q] = sre[at + at_of(q << LOG2T)];
+        xi[q] = sim[at + at_of(q << LOG2T)];
+      }
     }
   }
 }
@@ -263,20 +288,22 @@ static __device__ __forceinline__ void fft_pass(float (&xr)[R], float (&xi)[R],
 // (unused by a one-pass plan); tw is the plan's pass table. For a column of
 // a tile, tid is the thread's index within its column and sre/sim point at
 // the column's word of the tile's row 0. WARP: the exchanges sync the warp
-// only (sync_row).
+// only (sync_row). PAIR: the exchange is the float2 pairs from sre (the
+// one-sided body's; sim unused).
 template <int R, int LOG2T, int PLAN, int LOG2W = 0, int PADSHIFT = 5, int LOG2NS = 0,
-          bool WARP = false>
+          bool WARP = false, bool PAIR = false>
 static __device__ __forceinline__ void fft_regs(float (&xr)[R], float (&xi)[R],
                                                 float* sre, float* sim,
                                                 const float2* __restrict__ tw,
                                                 int tid) {
   static_assert(!WARP || (LOG2W == 0 && LOG2T <= 5), "a warp holds whole rows");
+  static_assert(!PAIR || LOG2W == 0, "pairs of a row");
   if constexpr (PLAN != 0) {
     constexpr int LOG = PLAN & 15;
     static_assert(LOG >= 1 && LOG <= 4 && (1 << LOG) <= R, "radix 2..16, at most R");
-    fft_pass<R, LOG, LOG2T, LOG2NS, (PLAN >> 4) == 0, LOG2W, PADSHIFT, WARP>(xr, xi, sre, sim,
-                                                                            tw, tid);
-    fft_regs<R, LOG2T, (PLAN >> 4), LOG2W, PADSHIFT, LOG2NS + LOG, WARP>(
+    fft_pass<R, LOG, LOG2T, LOG2NS, (PLAN >> 4) == 0, LOG2W, PADSHIFT, WARP, PAIR>(
+        xr, xi, sre, sim, tw, tid);
+    fft_regs<R, LOG2T, (PLAN >> 4), LOG2W, PADSHIFT, LOG2NS + LOG, WARP, PAIR>(
         xr, xi, sre, sim, tw + (LOG2NS == 0 ? 0 : ((1 << LOG) - 1) << LOG2NS), tid);
   }
 }

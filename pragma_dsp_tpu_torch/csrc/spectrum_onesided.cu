@@ -49,8 +49,7 @@ struct FrameBlock {
   static constexpr int kBlock =
       Row::kThreads < kFrameBlockThreads ? kFrameBlockThreads : Row::kThreads;
   static constexpr int kRows = kBlock / Row::kThreads;
-  static constexpr size_t kSmem =
-      (PLAN >> 4) != 0 ? 2 * sizeof(float) * kRows * static_cast<size_t>(Row::kStride) : 0;
+  static constexpr size_t kSmem = sizeof(float2) * kRows * kFrameStride<LOG2H>;
   // blocks an SM: as many as 56 registers a thread allow (1152 threads),
   // at most the SM's 32
   static constexpr int kMinBlocks = 1152 / kBlock < 32 ? 1152 / kBlock : 32;
@@ -73,11 +72,10 @@ spectrum_onesided_kernel(const float* __restrict__ x,
   const long long row = static_cast<long long>(blockIdx.x) * Block::kRows + local;
   const bool active = row < batch;
   const size_t out_row = static_cast<size_t>(active ? row : 0) * (N / 2 + 1);
-  float* sre = smem + local * Shape::kStride;
+  float2* ex = reinterpret_cast<float2*>(smem) + local * kFrameStride<LOG2H>;
   const OneSidedOut<N> out = {amp + out_row, ph != nullptr ? ph + out_row : nullptr};
-  onesided_frame<LOG2H, PLAN>(
-      active ? x + static_cast<size_t>(row) * N : nullptr, pairs != 0, win, out,
-      twc, tws, tw, sre, sre + Block::kRows * Shape::kStride, tid);
+  onesided_frame<LOG2H, PLAN>(x + static_cast<size_t>(active ? row : 0) * N, active,
+                              pairs != 0, win, out, twc, tws, tw, ex, tid);
 }
 
 // Where the peak instance writes: the frequency axis (n/2 + 1 floats, block
@@ -120,17 +118,18 @@ spectrum_onesided_kernel_peak(const float* __restrict__ x,
   const long long row = static_cast<long long>(blockIdx.x) * Block::kRows + local;
   const bool active = row < batch;
   const size_t out_row = static_cast<size_t>(active ? row : 0) * (N / 2 + 1);
-  float* sre = smem + local * Shape::kStride;
+  float2* ex = reinterpret_cast<float2*>(smem) + local * kFrameStride<LOG2H>;
   PeakRun run;
   const OneSidedPeakOut<N> out = {amp + out_row, ph + out_row, &run};
-  onesided_frame<LOG2H, PLAN>(
-      active ? x + static_cast<size_t>(row) * N : nullptr, pairs != 0, win, out,
-      twc, tws, tw, sre, sre + Block::kRows * Shape::kStride, tid);
+  onesided_frame<LOG2H, PLAN>(x + static_cast<size_t>(active ? row : 0) * N, active,
+                              pairs != 0, win, out, twc, tws, tw, ex, tid);
   // The thread's winner in peak_beats' order and whether any of its bins
   // is > 0: Nyquist, the last bin, wins only when larger; a NaN is rare, so
   // a thread that met one finds its first NaN again in the bins it has just
-  // written (its own stores, no barrier). A row past the end keeps the
-  // order's least element.
+  // written (its own stores, no barrier: bins k = tid + T*q, q < R/2, and
+  // n/2 - k, and thread 0's n/4), from the last down. A row past the end
+  // keeps the order's least element.
+  run.first();
   float v = run.m;
   int k = run.k;
   bool pos = fmaxf(run.m, run.nyq) > 0.0f;  // fmaxf skips a NaN
@@ -142,7 +141,13 @@ spectrum_onesided_kernel_peak(const float* __restrict__ x,
     const float* row_amp = amp + out_row;
     int first = run.nyq != run.nyq ? N / 2 : INT_MAX;
 #pragma unroll 1
-    for (int q = Shape::kRegs - 1; q >= 0; --q) {
+    for (int q = 0; q < Shape::kRegs / 2; ++q) {
+      const int b = N / 2 - tid - q * T;
+      if (b != N / 2 && row_amp[b] != row_amp[b]) first = b;
+    }
+    if (tid == 0 && row_amp[N / 4] != row_amp[N / 4]) first = N / 4;
+#pragma unroll 1
+    for (int q = Shape::kRegs / 2 - 1; q >= 0; --q) {
       const int b = tid + q * T;
       if (b != 0 && row_amp[b] != row_amp[b]) first = b;
     }

@@ -47,10 +47,9 @@ twosided_packed_kernel(const float* __restrict__ x, const float* __restrict__ wi
   const long long row = static_cast<long long>(blockIdx.x) * Shape::kRows + local;
   const bool active = row < batch;
   const size_t at = static_cast<size_t>(active ? row : 0) * N;
-  float* sre = smem + local * Shape::kStride;
+  float2* ex = reinterpret_cast<float2*>(smem) + local * kFrameStride<LOG2H>;
   const TwoSidedOut<N> out = {amp + at};
-  onesided_frame<LOG2H, PLAN>(active ? x + at : nullptr, pairs != 0, win, out, twc,
-                              tws, tw, sre, sre + Shape::kRows * Shape::kStride, tid);
+  onesided_frame<LOG2H, PLAN>(x + at, active, pairs != 0, win, out, twc, tws, tw, ex, tid);
 }
 
 // n <= 128: a complex transform of the windowed row, imaginary plane zero.
@@ -137,11 +136,12 @@ struct Args {
 template <int LOG2H, int PLAN>
 int launch_packed(const Args& a) {
   using Shape = RowShape<LOG2H, PLAN>;
-  cudaError_t err = allow_smem(twosided_packed_kernel<LOG2H, PLAN>, Shape::kSmem);
+  constexpr size_t kSmem = sizeof(float2) * Shape::kRows * kFrameStride<LOG2H>;
+  cudaError_t err = allow_smem(twosided_packed_kernel<LOG2H, PLAN>, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (a.batch + Shape::kRows - 1) / Shape::kRows;
   const int pairs = reinterpret_cast<uintptr_t>(a.x) % 8 == 0;  // rows of n: all or none
-  twosided_packed_kernel<LOG2H, PLAN><<<blocks, Shape::kBlock, Shape::kSmem, a.stream>>>(
+  twosided_packed_kernel<LOG2H, PLAN><<<blocks, Shape::kBlock, kSmem, a.stream>>>(
       a.x, a.win, a.amp, a.cosv, a.sinv, a.tw, a.batch, pairs);
   return static_cast<int>(cudaGetLastError());
 }

@@ -112,6 +112,7 @@ __all__ = [
     "points_per_thread",
     "pass_twiddles",
     "exchange_pad",
+    "frame_exchange_at",
     "spectrum_amp_phase_steps",
     "phase_steps",
     "magnitude_steps",
@@ -308,6 +309,21 @@ def exchange_at(a, log2w: int = 0, padshift: int = 5):
     return (a + (a >> padshift)) << log2w
 
 
+# The one-sided body's exchange (csrc/onesided.cuh, the register core's
+# PAIR layout): a frame's points as (re, im) pairs, one spare pair after
+# every 16 points.
+FRAME_PAD_SHIFT = 4
+
+
+def frame_exchange_at(a):
+    """``frame_at`` of csrc/onesided.cuh: where point ``a`` of a frame's
+    n/2 points lies in its exchange, in 8-byte (re, im) pairs from its point
+    0. An 8-byte warp access is served in two phases of 16 lanes, and 16
+    consecutive points from a multiple of 16 (every reload), or 16 points
+    16 apart (the first pass's store), fall on 16 different bank pairs."""
+    return exchange_at(a, 0, FRAME_PAD_SHIFT)
+
+
 def _w16(e: int, dtype: torch.dtype) -> Tuple[float, float]:
     """(cos, sin) of -2*pi*e/16, rounded once from float64 to ``dtype``."""
     w = np.exp(-2j * np.pi * e / 16)
@@ -350,17 +366,19 @@ def _butterflies_steps(xr: list, xi: list, radix: int) -> None:
             xr[u + t * m], xi[u + t * m] = nat[t]
 
 
-def _fft_regs_steps(xr: list, xi: list, n: int, tw: torch.Tensor) -> None:
+def _fft_regs_steps(xr: list, xi: list, n: int, tw: torch.Tensor, at=exchange_pad) -> None:
     """The register core on R = len(xr) registers of [B, T] lanes
     (T = n/R threads a row; register q of thread tid holds point
     tid + T*q, before and after): the passes of :func:`radix_plan`, each a
     twiddle multiply, the in-register butterflies and, but for the last,
-    one exchange through a padded row of shared memory."""
+    one exchange through a padded row of shared memory, point a at
+    ``at(a)``: :func:`exchange_pad` in the planes of the row kernels,
+    :func:`frame_exchange_at` in the pairs of the one-sided body."""
     regs = len(xr)
     lanes = n // regs
     dev = xr[0].device
     tid = torch.arange(lanes, device=dev)
-    lead, words = xr[0].shape[:-1], exchange_pad(n)
+    lead, words = xr[0].shape[:-1], at(n)
     plan = radix_plan(n)
     ns, off = 1, 0
     for p, r in enumerate(plan):
@@ -381,10 +399,10 @@ def _fft_regs_steps(xr: list, xi: list, n: int, tw: torch.Tensor) -> None:
                 j = tid + u * lanes
                 base = (j // ns) * ns * r + (j & (ns - 1))
                 for t in range(r):
-                    a = exchange_pad(base + t * ns)
+                    a = at(base + t * ns)
                     sre[..., a], sim[..., a] = xr[u + t * m], xi[u + t * m]
             for q in range(regs):
-                a = exchange_pad(tid + lanes * q)
+                a = at(tid + lanes * q)
                 xr[q], xi[q] = sre[..., a], sim[..., a]
         ns *= r
 
@@ -419,38 +437,53 @@ def fft_rows_steps(re: torch.Tensor, im: torch.Tensor, inverse: bool = False
 def _packed_real_bins_steps(x: torch.Tensor, n: int, window: str):
     """The per-frame body of ``csrc/onesided.cuh`` up to its stores, step by
     step: the windowed real frame [B, n] packed as z[j] = xw[2j] +
-    i*xw[2j+1], the register core at n/2 points, then the untangle. Returns
-    (re, im) over bins 0..n/2 as the kernel holds them: 2*X[k] between the
-    edges, by (Z[k] + conj Z[n/2-k]) - i*W_n^k*(Z[k] - conj Z[n/2-k]);
-    DC = Re Z[0] + Im Z[0] and Nyquist = Re Z[0] - Im Z[0], unscaled, with
-    imaginary part +0.0."""
+    i*xw[2j+1], the register core at n/2 points (its exchange in pairs),
+    then the untangle of the bins in pairs (k, n/2 - k), 0 < k < n/4: thread
+    tid's registers q >= R/2 (Z[n/4 ..]) go to the exchange at k - n/4, and
+    thread tid takes k = tid + T*q, q < R/2, with Z[n/2 - k] from there:
+    (sr + a, si - b) at k and (sr - a, -si - b) at n/2 - k, with sr, si, dr,
+    di = Z[k] +- conj Z[n/2-k] and a = c*di + s*dr, b = c*dr - s*di,
+    W_n^k = (c, s); bin n/4 (Z[n/4] its own partner) by the one-bin formula.
+    The exchange holds Z[k'] at n/2 - k', where bin k reads it at k.
+    Returns (re, im) over bins 0..n/2 as the kernel holds them: 2*X[k]
+    between the edges; DC = Re Z[0] + Im Z[0] and Nyquist = Re Z[0] -
+    Im Z[0], unscaled, with imaginary part +0.0."""
     half = n // 2
+    quarter = half // 2
     regs = points_per_thread(half)
+    up = regs // 2
     lanes = half // regs
     tid = torch.arange(lanes, device=x.device)
     xw = x * create_window(window, n, dtype=x.dtype, device=x.device)
     xr = [xw[..., 2 * (tid + lanes * q)] for q in range(regs)]
     xi = [xw[..., 2 * (tid + lanes * q) + 1] for q in range(regs)]
     cast = np.float32 if x.dtype == torch.float32 else np.float64
-    _fft_regs_steps(xr, xi, half, torch.from_numpy(pass_twiddles(half, cast)).to(x))
-    zr = torch.empty(x.shape[:-1] + (exchange_pad(half),), dtype=x.dtype,
+    _fft_regs_steps(xr, xi, half, torch.from_numpy(pass_twiddles(half, cast)).to(x),
+                    at=frame_exchange_at)
+    zr = torch.empty(x.shape[:-1] + (frame_exchange_at(quarter) + 1,), dtype=x.dtype,
                      device=x.device)
     zi = torch.empty_like(zr)
-    for q in range(regs):
-        a = exchange_pad(tid + lanes * q)
+    for q in range(up, regs):
+        a = frame_exchange_at(half - (tid + lanes * q))
         zr[..., a], zi[..., a] = xr[q], xi[q]
     wc, ws = (torch.from_numpy(t.astype(cast)).to(x.device) for t in _dft64(n))
     re2 = torch.empty(x.shape[:-1] + (half + 1,), dtype=x.dtype, device=x.device)
     im2 = torch.empty_like(re2)
-    for q in range(regs):
+    for q in range(up):
         k = tid + lanes * q
-        a = exchange_pad((half - k) & (half - 1))
+        a = frame_exchange_at(k)                              # k = 0 reads nothing
         pr, pi = zr[..., a], zi[..., a]
         sr, si = xr[q] + pr, xi[q] - pi
         dr, di = xr[q] - pr, xi[q] + pi
         c, s = wc[k], ws[k]
-        re2[..., k] = sr + (c * di + s * dr)
-        im2[..., k] = si - (c * dr - s * di)
+        pa, pb = c * di + s * dr, c * dr - s * di
+        re2[..., k], im2[..., k] = sr + pa, si - pb
+        re2[..., half - k], im2[..., half - k] = sr - pa, -si - pb
+    zr0, zi0 = xr[up][..., 0], xi[up][..., 0]      # Z[n/4], thread 0's register R/2
+    c, s = wc[quarter], ws[quarter]
+    sr, si, dr, di = zr0 + zr0, zi0 - zi0, zr0 - zr0, zi0 + zi0
+    re2[..., quarter] = sr + (c * di + s * dr)
+    im2[..., quarter] = si - (c * dr - s * di)
     # k = 0 pairs Z[0] with itself: both edge bins are exactly real
     re2[..., 0] = xr[0][..., 0] + xi[0][..., 0]
     re2[..., half] = xr[0][..., 0] - xi[0][..., 0]
@@ -761,16 +794,21 @@ def spectrum_peak_steps(amplitude: torch.Tensor, phase: torch.Tensor, n: int,
                         sample_rate: float):
     """K1's peak reduction step by step in PyTorch, for the tests: the
     amplitudes [B, n//2+1] as the kernel's threads hold them (T = n/32 a
-    frame; register q of thread t is bin t + T*q; thread 0 hands Nyquist
-    over first and keeps DC apart). Each thread's run in its order: a
-    strict > from -inf keeps its first largest bin, a sum flags a NaN, and
-    a thread whose sum is NaN takes its first NaN (Nyquist last); then the
+    frame; thread t holds bins k = t + T*q, q < 8, and n/2 - k, the
+    untangle's pairs, thread 0 also n/4; thread 0 hands Nyquist over first
+    and keeps DC apart). Each thread's runs in its order: a strict > from
+    -inf over its bins below n/4 (increasing) and a >= over its bins from
+    n/4 up (decreasing) keep their first largest bin, the high run's
+    winner taking the low one's only where larger; a sum flags a NaN, and a
+    thread whose sum is NaN takes its first NaN (Nyquist last); then the
     xor tree over the lanes of a warp (the frame's T lanes where T < 32),
     the warps of a frame in order, and DC against the non-DC winner, all by
     ``peak_beats``. Any values, negative ones too. Returns (index,
     frequency, amplitude, phase) at the peak, as the kernel writes them."""
     half = n // 2
+    quarter = half // 2
     regs = points_per_thread(half)
+    up = regs // 2
     lanes = half // regs
     lead = amplitude.shape[:-1]
     dev = amplitude.device
@@ -778,25 +816,39 @@ def spectrum_peak_steps(amplitude: torch.Tensor, phase: torch.Tensor, n: int,
     first = tid == 0
     sentinel = torch.full(lead + (lanes,), 2 ** 31 - 1, device=dev)
     m = torch.full(lead + (lanes,), -float("inf"), dtype=amplitude.dtype, device=dev)
-    k = sentinel.clone()
+    k, hm, hk = sentinel.clone(), m.clone(), sentinel.clone()
     nyq = torch.where(first, amplitude[..., half:half + 1], m)
     total = torch.where(first, nyq, torch.zeros_like(m))
-    for q in range(regs):
-        bins = tid + lanes * q
-        cv = amplitude[..., bins]
-        take = cv > m
-        if q == 0:                       # thread 0's DC is kept apart
-            take = take & ~first
-            cv = torch.where(first, torch.zeros_like(cv), cv)
-        total = total + cv
-        m, k = torch.where(take, cv, m), torch.where(take, bins, k)
-    v = m
-    pos = torch.fmax(m, nyq) > 0
+    zero = torch.zeros_like(m)
+    for q in range(up):
+        low = tid + lanes * q
+        high = half - low
+        cv, hv = amplitude[..., low], amplitude[..., high]
+        take, htake = cv > m, hv >= hm
+        if q == 0:                       # thread 0's DC is kept apart, Nyquist too
+            take, htake = take & ~first, htake & ~first
+            cv, hv = torch.where(first, zero, cv), torch.where(first, zero, hv)
+        total = total + cv + hv
+        m, k = torch.where(take, cv, m), torch.where(take, low, k)
+        hm, hk = torch.where(htake, hv, hm), torch.where(htake, high, hk)
+    qv = torch.where(first, amplitude[..., quarter:quarter + 1], zero)    # thread 0's n/4
+    total = total + qv
+    htake = first & (qv >= hm)
+    hm, hk = torch.where(htake, qv, hm), torch.where(htake, quarter, hk)
+    later = hm > m
+    v, k = torch.where(later, hm, m), torch.where(later, hk, k)
+    pos = torch.fmax(v, nyq) > 0
     later = nyq > v
     v, k = torch.where(later, nyq, v), torch.where(later, half, k)
     # a thread whose sum is NaN: its first NaN bin, Nyquist last
     nan_first = torch.where(torch.isnan(nyq), half, sentinel)
-    for q in reversed(range(regs)):
+    for q in range(up):
+        bins = half - tid - lanes * q
+        hit = torch.isnan(amplitude[..., bins]) & (bins != half)
+        nan_first = torch.where(hit, bins, nan_first)
+    hit = first & torch.isnan(amplitude[..., quarter:quarter + 1])
+    nan_first = torch.where(hit, quarter, nan_first)
+    for q in reversed(range(up)):
         bins = tid + lanes * q
         hit = torch.isnan(amplitude[..., bins]) & (bins != 0)
         nan_first = torch.where(hit, bins, nan_first)

@@ -45,10 +45,9 @@ K1 (the peak instance and the amp+phase instance)
 * no peak: the peak instance returns after its stores: no running peak, no
   reduction, no read-back;
 * candidates, each against this tree: block barriers (the core's exchanges
-  sync the block, not the warp), atan2f (in the place of phase_of),
-  shuffle untangle (scripts/k1_shuffle_variant.cuh in the place of
-  onesided.cuh: Z[n/2 - k] by a shuffle), sqrtf (the IEEE root in the
-  place of the magnitude's rsqrt and Newton step), approximate sqrt
+  sync the block, not the warp), atan2f (in the place of phase_of), sqrtf
+  (the IEEE root in the place of the magnitude's rsqrt and Newton step),
+  approximate sqrt
   (sqrt.approx), 64- and 128-thread blocks (2 or 4 frames of n = 1024 a
   block, not one warp's), pair twiddle (W_n^k read as one 8-byte pair;
   timing only).
@@ -335,25 +334,43 @@ extern "C" int fft_rows_occupancy(int n, int turn, int* blocks, int* clusters) {
 
 # ── K1 (csrc/spectrum_onesided.cu on csrc/onesided.cuh) ───────────────
 
-K1_LOADS_ONLY = [
-    [("onesided.cuh",
-      "  onesided_transform<LOG2H, PLAN>(xr, xi, frame != nullptr, out, twc, tws, tw, sre, sim,\n"
-      "                                  tid);",
-      """  {
+_K1_SUM = """  {
     float s = 0.0f;
 #pragma unroll
     for (int q = 0; q < R; ++q) s += xr[q] + xi[q];
     if (s == 12345.678f) out.amp[tid] = s;
     return;
   }
-{anchor}""")],
+{anchor}"""
+K1_LOADS_ONLY = [
+    # the body's exchange of pairs (this tree), or its planes
+    [("onesided.cuh",
+      "  onesided_transform<LOG2H, PLAN>(xr, xi, live, out, twc, tws, tw, ex, tid);",
+      _K1_SUM)],
+    [("onesided.cuh",
+      "  onesided_transform<LOG2H, PLAN>(xr, xi, frame != nullptr, out, twc, tws, tw, sre, sim,\n"
+      "                                  tid);",
+      _K1_SUM)],
 ]
 K1_MADE = [
+    [("onesided.cuh",
+      "      v = *(reinterpret_cast<const float2*>(frame) + tid + (q << LOG2T));",
+      "      v = make_float2(static_cast<float>(tid + q), static_cast<float>(tid - q));")],
     [("onesided.cuh",
       "        v = *(reinterpret_cast<const float2*>(frame) + tid + (q << LOG2T));",
       "        v = make_float2(static_cast<float>(tid + q), static_cast<float>(tid - q));")],
 ]
 K1_NO_STORE = [
+    [("onesided.cuh",
+      "    amp[k] = kScale * mag;\n    if (PHASE && ph != nullptr) ph[k] = phase_of(im, re);",
+      "    if (mag == " + _NEVER + ") amp[k] = kScale * mag;\n"
+      "    if (PHASE && ph != nullptr) {\n      const float p = phase_of(im, re);\n"
+      "      if (p == " + _NEVER + ") ph[k] = p;\n    }"),
+     ("onesided.cuh",
+      "    amp[k] = v;\n    ph[k] = phase_of(im, re);",
+      "    if (v == " + _NEVER + ") amp[k] = v;\n"
+      "    {\n      const float p = phase_of(im, re);\n"
+      "      if (p == " + _NEVER + ") ph[k] = p;\n    }")],
     [("onesided.cuh",
       "    amp[k] = kScale * mag;\n    if (ph != nullptr) ph[k] = phase_of(im, re);",
       "    if (mag == " + _NEVER + ") amp[k] = kScale * mag;\n"
@@ -396,20 +413,20 @@ K1_BLOCK_BARRIERS = [
     [("fft_regs.cuh", "  if constexpr (WARP) {\n    __syncwarp();\n  } else {",
       "  if constexpr (false) {\n    __syncwarp();\n  } else {")],
 ]
-# scripts/k1_shuffle_variant.cuh in the place of onesided.cuh: Z[n/2 - k]
-# by a shuffle where a frame lies in one warp (built and measured slower).
-SHUFFLE_SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                              "k1_shuffle_variant.cuh")
-K1_SHUFFLE = [[("fft_regs.cuh", "static __device__ __forceinline__ void sync_row() {",
-                "{anchor}"),        # a core with warp barriers (this tree)
-               ("onesided.cuh", None, SHUFFLE_SOURCE)]]
 # Candidates for the untangle's instructions: the magnitude by sqrtf (the
 # IEEE root with its slow path) or by the hardware's approximate root (one
-# instruction) in the place of this tree's rsqrt and Newton step; W_n^k
-# read as one 8-byte pair (timing only: the values differ).
-K1_SQRTF = [[("onesided.cuh", "      mag = magnitude(re, im);",
+# instruction) in the place of this tree's rsqrt and Newton step (the
+# function returns first: this tree's untangle calls it at three places);
+# W_n^k read as one 8-byte pair (timing only: the values differ).
+_MAGNITUDE = "static __device__ __forceinline__ float magnitude(float re, float im) {"
+_APPROX_ROOT = ("{anchor}\n  {\n    float root;\n"
+                "    asm(\"sqrt.approx.f32 %0, %1;\" : \"=f\"(root) : \"f\"(re * re + im * im));\n"
+                "    return root;\n  }")
+K1_SQRTF = [[("onesided.cuh", _MAGNITUDE, "{anchor}\n  return sqrtf(re * re + im * im);")],
+            [("onesided.cuh", "      mag = magnitude(re, im);",
               "      mag = sqrtf(re * re + im * im);")]]
 K1_APPROX_SQRT = [
+    [("onesided.cuh", _MAGNITUDE, _APPROX_ROOT)],
     [("onesided.cuh", "      mag = magnitude(re, im);",
       "      asm(\"sqrt.approx.f32 %0, %1;\" : \"=f\"(mag) : \"f\"(re * re + im * im));")],
     [("onesided.cuh", "      mag = sqrtf(re * re + im * im);",
@@ -422,6 +439,11 @@ K1_64_THREADS = [[("spectrum_onesided.cu", "constexpr int kFrameBlockThreads = 3
 K1_128_THREADS = [[("spectrum_onesided.cu", "constexpr int kFrameBlockThreads = 32;",
                     "constexpr int kFrameBlockThreads = 128;")]]
 K1_PAIR_TWIDDLE = [
+    [("onesided.cuh",
+      "__ldg(twck + (q << LOG2T)),\n                                        "
+      "__ldg(twsk + (q << LOG2T))",
+      "__ldg(reinterpret_cast<const float2*>(twc) + k).x, "
+      "__ldg(reinterpret_cast<const float2*>(twc) + k).y")],
     [("onesided.cuh",
       "      const float c = __ldg(twc + k);\n      const float s = __ldg(tws + k);",
       "      const float2 cs = __ldg(reinterpret_cast<const float2*>(twc) + k);\n"
@@ -436,7 +458,6 @@ K1_VARIANTS = {
     "no peak": K1_NO_PEAK,
     "block barriers": K1_BLOCK_BARRIERS,
     "atan2f": K1_ATAN2F,
-    "shuffle untangle": K1_SHUFFLE,
     "sqrtf": K1_SQRTF,
     "approximate sqrt": K1_APPROX_SQRT,
     "64-thread blocks": K1_64_THREADS,

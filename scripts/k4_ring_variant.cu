@@ -18,7 +18,8 @@
 // each frame (hoisted out of the walk, their loads held a hundred
 // registers), and the launch asks for 768 threads an SM, so the n = 4096
 // instance takes 80 registers and, with its 33,312 bytes of shared memory,
-// 6 blocks an SM where the shipped kernel holds 9.
+// 6 blocks an SM where the shipped kernel held 9 (with the planes of the
+// exchange, before its pairs).
 #include <climits>
 
 #include "onesided.cuh"
@@ -42,12 +43,18 @@ __host__ __device__ constexpr int ring_stride(int n) {
   return n + (Shape::kRows > 1 ? 16 : 0);
 }
 
+// The rows' exchanges of (re, im) pairs (onesided.cuh).
+template <class Shape>
+__host__ __device__ constexpr size_t exchange_bytes() {
+  return sizeof(float2) * Shape::kRows * frame_at(Shape::kN);
+}
+
 // Dynamic shared memory of a launch: the rows' rings and their barriers,
-// then the exchange planes.
+// then the exchanges.
 template <class Shape>
 __host__ __device__ constexpr size_t stft_smem(int n, int hop, int mode) {
-  if (mode == kDirect) return Shape::kSmem;
-  return Shape::kSmem + static_cast<size_t>(Shape::kRows) *
+  if (mode == kDirect) return exchange_bytes<Shape>();
+  return exchange_bytes<Shape>() + static_cast<size_t>(Shape::kRows) *
                             (sizeof(float) * ring_stride<Shape>(n) +
                              sizeof(uint64_t) * static_cast<size_t>(n / hop));
 }
@@ -129,10 +136,10 @@ stft_onesided_kernel(const float* __restrict__ x, const float* __restrict__ win,
   uint64_t* bars =
       reinterpret_cast<uint64_t*>(smem + sizeof(float) * Shape::kRows * stride) +
       (ring_on ? local * span : 0);
-  float* sre = reinterpret_cast<float*>(
-                   smem + (ring_on ? stft_smem<Shape>(N, hop, mode) - Shape::kSmem : 0)) +
-               local * Shape::kStride;
-  float* sim = sre + Shape::kRows * Shape::kStride;
+  float2* ex = reinterpret_cast<float2*>(
+                   smem + (ring_on ? stft_smem<Shape>(N, hop, mode) - exchange_bytes<Shape>()
+                                   : 0)) +
+               local * frame_at(Shape::kN);
 
   // This row's segment: frames first .. first + count - 1 of signal b.
   const int sid = blockIdx.x * Shape::kRows + local;
@@ -201,7 +208,7 @@ stft_onesided_kernel(const float* __restrict__ x, const float* __restrict__ win,
       xi[q] = v.y * w.y;
     }
     // Every row holds its frame: the oldest chunk's slot is free, and the
-    // planes of the frame before are read.
+    // exchange of the frame before is read.
     if (ring_on || i > 0) __syncthreads();
     if (ring_on && i + span < chunks) {
       ring_issue<T>(ring + head, src + static_cast<size_t>(i + span) * hop, hop,
@@ -209,7 +216,7 @@ stft_onesided_kernel(const float* __restrict__ x, const float* __restrict__ win,
     }
     const size_t row = out0 + static_cast<size_t>(i) * (N / 2 + 1);
     const OneSidedOut<N> out = {amp + row, ph != nullptr ? ph + row : nullptr};
-    onesided_transform<LOG2H, PLAN>(xr, xi, live, out, twc_f, tws_f, tw_f, sre, sim, tid);
+    onesided_transform<LOG2H, PLAN>(xr, xi, live, out, twc_f, tws_f, tw_f, ex, tid);
     head = head + hop == N ? 0 : head + hop;
   }
 }

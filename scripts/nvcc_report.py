@@ -9,9 +9,9 @@ stores and loads, as `nvcc -Xptxas -v` prints them.
 Needs nvcc (the CUDA toolkit), no card. Objects go to a temporary directory.
 Prints one JSON object per source, then one line per group of instances
 with the same numbers; with --instances also one JSON line per instance:
-its kernel and template arguments, registers, spills and a digest of its
-SASS (cuobjdump -sass), so that two checkouts' lines compare instance by
-instance. Imports nothing of JAX.
+its kernel and template arguments, registers, spills, a digest of its
+SASS (cuobjdump -sass) and its count of SASS instructions, so that two
+checkouts' lines compare instance by instance. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -92,7 +92,9 @@ def main() -> int:
                 rows.append({"instance": instance_key(name), "registers": int(regs.group(1)),
                              "spill_stores": int(spill.group(1)),
                              "spill_loads": int(spill.group(2)),
-                             "sass": sass.get(src.stem, {}).get(instance_key(name))})
+                             **dict(zip(("sass", "sass_instructions"),
+                                        sass.get(src.stem, {}).get(instance_key(name),
+                                                                   (None, None))))})
             for row in sorted(rows, key=lambda r: r["instance"]):
                 print(json.dumps(row), flush=True)
     return 0
@@ -112,7 +114,8 @@ def instance_key(mangled: str) -> str:
 
 
 def sass_digests(cuobjdump: str, obj: str) -> dict:
-    """A digest of each function's SASS in an object."""
+    """A digest of each function's SASS in an object, and its count of
+    instructions."""
     text = subprocess.run([cuobjdump, "-sass", obj], capture_output=True, text=True,
                           check=True).stdout
     out = {}
@@ -120,7 +123,8 @@ def sass_digests(cuobjdump: str, obj: str) -> dict:
         name, _, body = part.partition("\n")
         # cuobjdump pads its columns by the longest name: only the code counts
         body = re.sub(r"\s+", " ", body.split("\n\t\t..........")[0])
-        out[instance_key(name.strip())] = hashlib.sha256(body.encode()).hexdigest()[:16]
+        out[instance_key(name.strip())] = (hashlib.sha256(body.encode()).hexdigest()[:16],
+                                           len(re.findall(r"/\*[0-9a-f]{4}\*/", body)))
     return out
 
 

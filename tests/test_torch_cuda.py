@@ -214,6 +214,40 @@ def test_k4_at_config2_width(dev):
     assert _snr(pamp.cpu().numpy(), amp[:8].cpu().numpy()) >= 105.0
 
 
+def test_k4_equals_the_parent_design_at_config2_width(dev, tmp_path):
+    """The paired exchange, the pair untangle and the 2-D grid keep K4's
+    arithmetic: at config 2's width its amplitudes and phases are bit-equal
+    to the design they replaced (scripts/k4_parent/, built as
+    scripts/k4_split.py builds its "parent design" variant)."""
+    import importlib.util
+    import subprocess
+    from pathlib import Path
+
+    from pragma_dsp_tpu_torch.ops import _build
+
+    root = Path(__file__).resolve().parent.parent
+    spec = importlib.util.spec_from_file_location("k4_split", root / "scripts" / "k4_split.py")
+    split = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(split)
+    src = tmp_path / "csrc"
+    assert split.patched(str(_build.CSRC), str(src), split.VARIANTS["parent design"])
+    lib = tmp_path / "parent.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(lib),
+                    str(src / "stft_onesided.cu")], check=True, capture_output=True)
+    n, hop = 4096, 1024
+    x = torch.from_numpy(np.random.default_rng(20).standard_normal(
+        (128, 480000)).astype(np.float32)).to(dev)
+    amp, ph = fft_cuda.framed_spectrum_amp_phase_cuda(x, n, hop, "hann")
+    only = fft_cuda.framed_spectrum_amplitude_cuda(x, n, hop, "hann")
+    try:
+        split.load_variant(_build, str(lib))
+        pamp, pph = fft_cuda.framed_spectrum_amp_phase_cuda(x, n, hop, "hann")
+        ponly = fft_cuda.framed_spectrum_amplitude_cuda(x, n, hop, "hann")
+    finally:
+        _build._lib = None
+    assert torch.equal(amp, pamp) and torch.equal(ph, pph) and torch.equal(only, ponly)
+
+
 @pytest.mark.parametrize("offset,extra", [(0, 0), (0, 1), (1, 0), (1, 1)])
 @pytest.mark.parametrize("n", [1024, 4096, 16384])
 def test_k4_frame_starts_on_cuda(dev, n, offset, extra):

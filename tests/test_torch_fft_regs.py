@@ -181,6 +181,138 @@ def test_exchange_bank_conflicts(n):
         ns *= r
 
 
+# ── the one-sided body's exchange of pairs (csrc/onesided.cuh) ───────
+
+HALF_SIZES = [n // 2 for n in FRAME_SIZES]      # the transforms K1, K3 and K4 run
+
+
+def _frame_accesses(half):
+    """Every access of one frame's exchange, as the body makes them: for
+    each instruction (the core's stores of every pass but the last, its
+    reloads, the untangle's stores and reads), the pair a thread touches
+    (None where a lane does not access) and the point it holds there."""
+    at = fft_cuda.frame_exchange_at
+    regs = fft_cuda.points_per_thread(half)
+    lanes = half // regs
+    tid = np.arange(lanes)
+    out, ns = [], 1
+    for p, r in enumerate(fft_cuda.radix_plan(half)[:-1]):
+        for u in range(regs // r):
+            j = tid + u * lanes
+            base = (j // ns) * ns * r + (j & (ns - 1))
+            for t in range(r):
+                out.append((f"pass {p} store", at(base + t * ns), base + t * ns))
+        for q in range(regs):
+            out.append((f"pass {p} reload", at(tid + lanes * q), tid + lanes * q))
+        ns *= r
+    for q in range(regs // 2, regs):       # Z[k'], k' >= n/4, at n/2 - k'
+        out.append(("untangle store", at(half - tid - lanes * q), tid + lanes * q))
+    for q in range(regs // 2):             # Z[n/2 - k] of k = tid + T*q, k > 0, at k
+        k = tid + lanes * q
+        out.append(("untangle read", np.where(k == 0, -1, at(k)), half - k))
+    return lanes, out
+
+
+@pytest.mark.parametrize("half", HALF_SIZES)
+def test_frame_exchange_addresses_are_unique_and_inside(half):
+    """Every pair the body writes lies inside the frame's kFrameStride
+    pairs (frame_at(n/2), so that the frames of a block do not overlap), no
+    two points share a pair in one exchange, every reload finds the point
+    of its register, and the untangle reads Z[n/2 - k] where its owner put
+    it."""
+    stride = fft_cuda.frame_exchange_at(half)
+    assert stride == half + half // 16
+    lanes, accesses = _frame_accesses(half)
+    held, stored = {}, set()
+    for what, addr, point in accesses:
+        addr, point = np.broadcast_to(addr, (lanes,)), np.broadcast_to(point, (lanes,))
+        live = addr >= 0
+        assert int(addr.max()) < stride, what
+        if what.endswith("store"):
+            if what not in stored:             # a new exchange: the last is read
+                stored.add(what)
+                held = {}
+            for a, pt in zip(addr.tolist(), point.tolist()):
+                assert a not in held, (what, a)
+                held[a] = pt
+        else:
+            assert [held[a] for a in addr[live].tolist()] == point[live].tolist(), what
+    assert len(held) == half // 2          # the untangle's exchange: Z[n/4 ..]
+    assert len(stored) == len(fft_cuda.radix_plan(half))   # the core's and the untangle's
+
+
+def _phases_conflicts(addr, frame_of_lane, stride):
+    """The worst bank conflict of one 8-byte warp access: each half-warp of
+    16 lanes is one phase over 16 bank pairs (pair address mod 16); lanes
+    that read the same pair share it."""
+    worst = 1
+    for phase in (slice(0, 16), slice(16, 32)):
+        a = addr[phase]
+        frames = frame_of_lane[phase]
+        live = a >= 0
+        pairs = set(zip((frames[live] * stride + a[live]).tolist()))
+        by_bank = {}
+        for (p,) in pairs:
+            by_bank.setdefault(p % 16, set()).add(p)
+        worst = max([worst] + [len(v) for v in by_bank.values()])
+    return worst
+
+
+@pytest.mark.parametrize("half", HALF_SIZES)
+def test_frame_exchange_bank_conflicts(half):
+    """csrc/fft_regs.cuh's note on the pairs: in each half-warp phase every
+    store and reload of the core and the untangle's stores touch 16
+    different bank pairs, but for the first pass's store at n/2 = 128
+    (radix 8, two frames a phase), a 2-way conflict, and so does the
+    untangle's read; the untangle's descending store is a 2-way conflict
+    (one lane of a phase past a spare pair). A warp holds 32/T frames where a frame has T < 32 threads (K4's
+    and K3's blocks, K1's one-warp blocks), one frame's 32 threads else."""
+    lanes, accesses = _frame_accesses(half)
+    stride = fft_cuda.frame_exchange_at(half)
+    worst = {}
+    for what, addr, _ in accesses:
+        addr = np.broadcast_to(addr, (lanes,))
+        for warp in range(0, max(lanes, 32), 32):
+            lane = np.arange(32) + warp
+            tid, frame = lane % lanes, lane // lanes
+            got = _phases_conflicts(addr[tid], frame, stride)
+            worst[what] = max(worst.get(what, 1), got)
+    want = {what: 1 for what in worst}
+    want["untangle store"] = 2
+    if half == 128:
+        want["pass 0 store"] = 2
+    assert worst == want
+
+
+@pytest.mark.parametrize("n", FRAME_SIZES)
+def test_pair_untangle_is_the_one_bin_formula_bit_for_bit(n):
+    """The untangle's pairs give the floats the one-bin formula gives at k
+    and at n/2 - k, in float32: W_n^(n/2-k) = -conj W_n^k holds exactly in
+    the float32 table (its float64 entries round to opposite cosines and
+    equal sines) and rounding is symmetric. So the pair untangle kept every
+    bit of K1, K3 and K4."""
+    half = n // 2
+    c, s = (torch.from_numpy(t) for t in fft_cuda.dft_table(n))
+    k = torch.arange(1, half // 2)
+    assert torch.equal(c[half - k], -c[k]) and torch.equal(s[half - k], s[k])
+    rng = np.random.default_rng(n)
+    z = torch.from_numpy(rng.standard_normal((4, half)).astype(np.float32) * 3.0)
+    w = torch.from_numpy(rng.standard_normal((4, half)).astype(np.float32) * 3.0)
+
+    def one_bin(b, p):        # the one-bin untangle of bin b, Z[n/2 - b] = Z[p]
+        sr, si = z[:, b] + z[:, p], w[:, b] - w[:, p]
+        dr, di = z[:, b] - z[:, p], w[:, b] + w[:, p]
+        return sr + (c[b] * di + s[b] * dr), si - (c[b] * dr - s[b] * di)
+
+    re, im = one_bin(k, half - k)
+    re2, im2 = one_bin(half - k, k)
+    sr, si = z[:, k] + z[:, half - k], w[:, k] - w[:, half - k]
+    dr, di = z[:, k] - z[:, half - k], w[:, k] + w[:, half - k]
+    a, b = c[k] * di + s[k] * dr, c[k] * dr - s[k] * di
+    for got, want in ((sr + a, re), (si - b, im), (sr - a, re2), (-si - b, im2)):
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
 # ── K2's arithmetic step by step ─────────────────────────────────────
 
 

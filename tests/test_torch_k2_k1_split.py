@@ -3,9 +3,7 @@
 Every variant the script builds applies to the row kernel's and the
 one-sided spectrum's sources of this checkout (an edit to csrc/ that breaks
 an anchor would make the script skip the variant without a word on the
-card), the shuffle variant (scripts/k1_shuffle_variant.cuh) differs from
-csrc/onesided.cuh only in its untangle, and the shapes the script times are
-the paths' own. The timings themselves need a card: run
+card), and the shapes the script times are the paths' own. The timings themselves need a card: run
 ``python3 scripts/k2_k1_split.py`` there.
 
 ``phase_of`` (csrc/onesided.cuh) replaced atan2f in K1 and K4: its
@@ -85,22 +83,6 @@ def test_turned_designs_set_both_tables_and_the_host(design, tmp_path):
     for n, (store, load) in host.items():
         assert store == load == 1 << log2cs[(n.bit_length() - 1) - 8]
         assert 16 % store == 0     # a block turns whole registers of the 16
-
-
-def _without_untangle(text: str) -> str:
-    start = text.index("template <int LOG2H, int PLAN, class Out>\n"
-                       "static __device__ __forceinline__ void onesided_transform(")
-    end = text.index("// One frame of n = 2^(LOG2H + 1) samples")
-    return text[text.index("#pragma once"):start] + text[end:]
-
-
-def test_shuffle_variant_differs_only_in_its_untangle():
-    """The shuffle variant is the shipped header with another untangle, so
-    that what the split measures is that untangle and nothing else."""
-    shipped = (_build.CSRC / "onesided.cuh").read_text()
-    variant = Path(split.SHUFFLE_SOURCE).read_text()
-    assert _without_untangle(variant) == _without_untangle(shipped)
-    assert "__shfl_sync" in variant and "__shfl_sync" not in shipped
 
 
 def test_the_split_times_the_paths_shapes():

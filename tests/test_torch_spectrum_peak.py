@@ -127,6 +127,20 @@ def _adversarial(n: int, dtype=np.float32):
     zeros = np.zeros(bins)
     zeros[6] = -0.0
     rows["zeros, one -0.0"] = zeros
+    # the untangle's pairs: thread t holds bins t + T*q, q < 8, in its low
+    # run and n/2 - (t + T*q) in its high run, thread 0 also n/4
+    pair = rng.random(bins) * 0.5
+    pair[[5, half - 5]] = 0.9
+    rows["tie across a thread's pair"] = pair
+    high = rng.random(bins) * 0.5
+    high[[half - 5, half - 5 - lanes]] = 0.9
+    rows["tie in a thread's high bins"] = high
+    quarter = rng.random(bins) * 0.5
+    quarter[[half // 2, half // 2 + lanes]] = 0.9
+    rows["tie at n/4"] = quarter
+    both_runs = rng.random(bins)
+    both_runs[[half - 6, 6 + lanes]] = np.nan
+    rows["NaN in a thread's two runs"] = both_runs
     amp = np.stack(list(rows.values())).astype(dtype)
     phase = rng.uniform(-np.pi, np.pi, amp.shape).astype(dtype)
     return list(rows), amp, phase
@@ -162,7 +176,9 @@ def test_steps_follow_find_peak_on_adversarial_rows(n, dtype):
             "Nyquist ties an earlier bin": 2, "negative with a NaN": 17,
             "negative, zero DC": 0, "only DC positive": 0, "-inf everywhere": 0,
             "zeros, one -0.0": 0, "ties": 7, "NaN at DC, positive bins": None,
-            "+inf and -inf in one thread": 3}
+            "+inf and -inf in one thread": 3, "tie across a thread's pair": 5,
+            "tie in a thread's high bins": n // 2 - 5 - n // 32, "tie at n/4": n // 4,
+            "NaN in a thread's two runs": 6 + n // 32}
     for i, name in enumerate(names):
         if want.get(name) is not None:
             assert int(index[i]) == want[name], name
